@@ -1,0 +1,291 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port (``rmf_crowdsim_tpu_torch``) on one GPU.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card and exits nonzero without one (or without the
+repository beside it).  Phases, each printing its own line:
+
+1. the card: ``nvidia-smi`` name and power limit, torch's device name;
+2. build: compile the CUDA kernels from ``rmf_crowdsim_tpu_torch/csrc``;
+3. every kernel against its plain PyTorch version on the card, at the
+   1M-agent bench scene's shapes: K3 (pack) bitwise, K1 (force) and K2
+   (spill window) to rtol = atol = 2e-4 on live rows with integer
+   priorities on and off; times of both;
+4. gate (the port of bench.py's ``compiled_parity_check``): the 4,096-agent
+   bench scene with the 48-agent hotspot, 5 steps at dt = 1/60,
+   ``grid_pallas`` against ``brute`` by uid to 2e-4, zero truncation;
+5. main path: the 1M-agent bench scene through ``build_rollout``: a
+   warm-up, then 20 timed steps; zero truncation, finite state, and every
+   kernel launched; then the host syncs per step, counted.
+
+Then one JSON line of per-kernel results, the card's line, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failure raises.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+import warnings
+
+N_MAIN = 1_000_000
+N_GATE = 4096
+DT = 1.0 / 60.0
+TOL = 2e-4
+
+
+def _cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls
+    (CUDA events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _timed_pair(torch, kernel, plain, reps: int):
+    """(kernel ms, plain ms), measured in turns kernel, plain, plain,
+    kernel and averaged."""
+    k1 = _cuda_ms(torch, kernel, reps)
+    p1 = _cuda_ms(torch, plain, reps)
+    p2 = _cuda_ms(torch, plain, reps)
+    k2 = _cuda_ms(torch, kernel, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.core.step import payload_sort_by_key
+    from rmf_crowdsim_tpu_torch.models.highlevel import ParityVelocity
+    from rmf_crowdsim_tpu_torch.ops import pack, spill
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.utils import cuda_build
+    from rmf_crowdsim_tpu_torch.utils.profile_step import card_line
+
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"phase 1 device: nvidia-smi '{card}'; torch '{kind}'; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    cuda_build.library()
+    build_s = time.perf_counter() - t0
+    print(f"phase 2 build: {build_s:.1f} s -> {cuda_build.library_path()}",
+          flush=True)
+    for line in cuda_build.build_log().splitlines():
+        if "Used" in line or "spill" in line or "Compiling" in line:
+            print(f"  ptxas: {line.strip()}")
+
+    # ---- phase 3: kernels vs plain versions at the 1M bench shapes ------
+    config = scenes.bench_config(N_MAIN)
+    bcfg = zb.BucketConfig.create(
+        config.grid.width, config.grid.height, config.grid.offset,
+        config.max_eyesight, bucket=config.bucket_capacity,
+        strip_tiles=config.strip_tiles, sub_tiles=config.sub_tiles,
+        tile_size=config.bucket_tile_size)
+    rollout, params, st = scenes.build_bench(N_MAIN, device=dev,
+                                             hotspot=True)
+    # Two steps first, so agents move and pair forces are live.
+    st, _ = rollout(params, st, DT, 2)
+    st, _, _ = payload_sort_by_key(
+        st, zb.tile_key(bcfg, st.position, st.alive),
+        torch.zeros_like(st.alive))
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat_t, bpos, bucket_pos, _, _ = zb.feature_rows(
+        bcfg, st.position, st.velocity, st.preferred_vel, rec, st.priority,
+        st.eyesight, rec, st.alive, use_pack_kernel=True, presorted=True)
+    results = {}
+
+    packed_t, packed_T, _ = pack.pack_rows(feat_t, bpos, bcfg.slots)
+    plain_t, plain_T = pack.pack_rows_plain(feat_t, bpos, bcfg.slots)
+    err3 = max((packed_t - plain_t).abs().max().item(),
+               (packed_T - plain_T).abs().max().item())
+    if not (torch.equal(packed_t, plain_t) and torch.equal(packed_T, plain_T)):
+        raise AssertionError(f"K3 pack differs from its plain version "
+                             f"(max abs err {err3})")
+    ms, pms = _timed_pair(
+        torch, lambda: pack.pack_rows(feat_t, bpos, bcfg.slots),
+        lambda: pack.pack_rows_plain(feat_t, bpos, bcfg.slots), 10)
+    results["pack_rows"] = dict(err=err3, ms=ms, plain_ms=pms)
+    print(f"phase 3 K3 pack_rows: {N_MAIN} rows -> {bcfg.slots} slots, "
+          f"bitwise equal; kernel {ms:.3f} ms, plain {pms:.3f} ms",
+          flush=True)
+
+    zp5 = zb.zparams5(params.lp[0])
+    live = packed_T[zb.ROW_ID] >= 0
+    err1, t1 = 0.0, []
+    for int_prio in (True, False):
+        out_k = zb.zanlungo_forces_bucketed(bcfg, zp5, packed_t, packed_T,
+                                            int_prio=int_prio)
+        out_p = zb.forces_bucketed_plain(bcfg, zp5, packed_t, packed_T,
+                                         int_prio)
+        n_forced = int(((out_p - packed_t[:, 8:10]).abs().sum(1)
+                        > 0)[live].sum())
+        torch.testing.assert_close(out_k[live], out_p[live], rtol=TOL,
+                                   atol=TOL)
+        e = (out_k[live] - out_p[live]).abs().max().item()
+        err1 = max(err1, e)
+        ms, pms = _timed_pair(
+            torch, lambda: zb.zanlungo_forces_bucketed(
+                bcfg, zp5, packed_t, packed_T, int_prio=int_prio),
+            lambda: zb.forces_bucketed_plain(bcfg, zp5, packed_t,
+                                             packed_T, int_prio), 3)
+        t1.append((ms, pms))
+        print(f"phase 3 K1 zanlungo_bucketed int_prio={int_prio}: "
+              f"{int(live.sum())} live slots ({n_forced} with forces) of "
+              f"{bcfg.slots}; max abs err {e:.3g} (tol {TOL}); kernel "
+              f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+    results["zanlungo_bucketed"] = dict(err=err1, ms=t1[0][0],
+                                        plain_ms=t1[0][1])
+
+    c_sp, sp, sp_tcx, sp_tcy = spill.spill_rows(
+        bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
+        st.eyesight, st.alive, rec, bucket_pos, config.spill_capacity)
+    n_spill = int(c_sp.count)
+    if n_spill == 0:
+        raise AssertionError("the 1M hotspot scene has no spills")
+    sp_T = spill.spill_candidates(sp)
+    q_slots = spill.window_query_slots(bcfg, sp_tcx, sp_tcy)
+    q_live = c_sp.valid[:, None] & (packed_t[q_slots, zb.ROW_ID] >= 0)
+    err2, t2 = 0.0, []
+    for int_prio in (True, False):
+        out_k = spill.spill_window(bcfg, zp5, packed_t, packed_T, sp_T,
+                                   sp_tcx, sp_tcy, int_prio=int_prio)
+        out_p = spill.spill_window_plain(bcfg, zp5, packed_t, packed_T,
+                                          sp_T, sp_tcx, sp_tcy, int_prio)
+        torch.testing.assert_close(out_k[q_live], out_p[q_live], rtol=TOL,
+                                   atol=TOL)
+        e = (out_k[q_live] - out_p[q_live]).abs().max().item()
+        err2 = max(err2, e)
+        ms, pms = _timed_pair(
+            torch, lambda: spill.spill_window(
+                bcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
+                int_prio=int_prio),
+            lambda: spill.spill_window_plain(
+                bcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
+                int_prio), 10)
+        t2.append((ms, pms))
+        print(f"phase 3 K2 spill_window int_prio={int_prio}: {n_spill} "
+              f"spills in {config.spill_capacity} slots, "
+              f"{int(q_live.sum())} live window queries; max abs err "
+              f"{e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms", flush=True)
+    results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1])
+    del (rollout, params, st, feat_t, packed_t, packed_T, plain_t, plain_T,
+         out_k, out_p)
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: gate, grid_pallas against brute -----------------------
+    outs, occs = {}, {}
+    for backend in ("brute", "grid_pallas"):
+        rollout, params, st = scenes.build_bench(
+            N_GATE, backend=backend, device=dev, hotspot=True)
+        st, c = rollout(params, st, DT, 5)
+        truncated = int(c.neighbor_truncated.max())
+        if truncated:
+            raise AssertionError(f"gate scene truncates {truncated} on "
+                                 f"{backend}")
+        outs[backend] = st.position[torch.argsort(st.uid)]
+        occs[backend] = int(c.max_cell_occupancy.max())
+    if occs["grid_pallas"] <= config.bucket_capacity:
+        raise AssertionError("gate scene does not overflow a bucket")
+    torch.testing.assert_close(outs["grid_pallas"], outs["brute"],
+                               rtol=TOL, atol=TOL)
+    gate_err = (outs["grid_pallas"] - outs["brute"]).abs().max().item()
+    print(f"phase 4 gate: {N_GATE} agents + hotspot, 5 steps, grid_pallas "
+          f"vs brute by uid: max abs err {gate_err:.3g} (tol {TOL}); max "
+          f"tile occupancy {occs['grid_pallas']}; truncated 0", flush=True)
+
+    # ---- phase 5: main path, the 1M bench scene --------------------------
+    kernels = {
+        "pack_rows": pack.pack_rows,
+        "zanlungo_bucketed": zb.zanlungo_forces_bucketed,
+        "spill_window": spill.spill_window,
+    }
+    rollout, params, st = scenes.build_bench(N_MAIN, device=dev)
+    st, _ = rollout(params, st, DT, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    n_steps = 20
+    t0 = time.perf_counter()
+    st, c = rollout(params, st, DT, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    missing = [name for name, k in launches.items() if k == 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}")
+    truncated = int(c.neighbor_truncated.max())
+    if truncated:
+        raise AssertionError(f"main path truncates {truncated}")
+    if tuple(st.position.shape) != (N_MAIN, 2) or not bool(
+            torch.isfinite(st.position).all()):
+        raise AssertionError("main path state is not finite [N, 2]")
+    if int(c.n_alive.min()) != N_MAIN:
+        raise AssertionError("main path lost agents")
+    print(f"phase 5 main: {N_MAIN} agents, {n_steps} steps in {wall:.4f} s"
+          f" = {n_steps / wall:.2f} steps/s, {1e3 * wall / n_steps:.3f} "
+          f"ms/step on '{card}'; launches {launches}; max tile occupancy "
+          f"{int(c.max_cell_occupancy.max())}; truncated 0; peak "
+          f"{peak_gb:.2f} GB", flush=True)
+
+    n_sync_steps = 3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st, _ = rollout(params, st, DT, n_sync_steps)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Each warning names the Python line that called the synchronizing op.
+    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    sites = {s: syncs.count(s) for s in sorted(set(syncs))}
+    print(f"phase 5 host syncs: {len(syncs)} in {n_sync_steps} steps "
+          f"({len(syncs) / n_sync_steps:.2f} per step) at {sites}",
+          flush=True)
+
+    source = {
+        "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
+                      "rmf_crowdsim_tpu/ops/pack_pallas.py:206"),
+        "zanlungo_bucketed": (
+            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cu",
+            "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1348"),
+        "spill_window": ("rmf_crowdsim_tpu_torch/csrc/spill_window.cu",
+                         "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1867"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source[name][0],
+         "replaces": source[name][1], "launches": launches[name],
+         "max_abs_err": results[name]["err"], "ms": results[name]["ms"],
+         "plain_ms": results[name]["plain_ms"]}
+        for name in kernels
+    ]}))
+    print(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,100 @@
+"""The bench scene, rebuilt without JAX.
+
+Counterpart of ``bench.py:31-123`` (``_bench_config`` and ``build_bench``)
+and of the hotspot of ``compiled_parity_check`` (``bench.py:138-143``):
+a uniform dense Zanlungo crowd (~1.6 m^2 per agent, eyesight 2 m) with
+``ParityVelocity`` + ``Zanlungo``, no sources, built from the same numpy
+seeds so both packages start from the same positions.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.config import GridConfig, SimConfig
+from .core.state import make_state
+from .core.step import SimParams, build_rollout
+from .models.highlevel import ParityVelocity
+from .models.local import Zanlungo
+
+HOTSPOT_AGENTS = 48
+
+
+def bench_config(n_agents: int, dtype: str = "float32",
+                 backend: str = "grid_pallas") -> SimConfig:
+    """bench.py:31-75: tiles of 5.3 m with buckets of 32, the pack
+    kernel, ``spill_capacity = max(128, n // 4096)``, and on the kernel
+    backends presort, integer priorities and ``dual_row``."""
+    area_per_agent = 1.6
+    side = float(np.ceil(np.sqrt(n_agents * area_per_agent)))
+    cell = 2.0
+    side = float(np.ceil(side / cell) * cell)
+    kernel_backend = backend in ("grid_pallas", "grid_dense")
+    return SimConfig(
+        capacity=n_agents,
+        grid=GridConfig(width=side, height=side, cell_size=cell,
+                        offset=(-side / 2, -side / 2)),
+        neighbor_backend=backend,
+        max_per_cell=16,
+        max_eyesight=2.0,
+        bucket_capacity=32,
+        sub_tiles=2,
+        strip_tiles=96,
+        bucket_tile_size=5.3,
+        use_pack_kernel=(backend == "grid_pallas"),
+        spill_capacity=max(128, n_agents // 4096),
+        presort=kernel_backend,
+        integer_priorities=kernel_backend,
+        dual_row=kernel_backend,
+        dtype=dtype,
+    )
+
+
+def bench_positions(n_agents: int, side: float, hotspot: bool = False,
+                    hotspot_origin=(10.0, 10.0)) -> np.ndarray:
+    """Initial positions [N, 2] float64: uniform in the world's interior
+    (seed 0), with ``hotspot`` the first 48 agents moved into one 2 m
+    square at ``hotspot_origin`` (seed 7).  At bench.py's origin (10, 10)
+    the square overflows a bucket of 32 from 4,096 agents up; at 1,024
+    agents it straddles tile corners and needs an origin inside one tile,
+    such as (6, 6), to overflow."""
+    lim = side / 2 - 1.0
+    pos = np.random.default_rng(0).uniform(-lim, lim, size=(n_agents, 2))
+    if hotspot:
+        rng = np.random.default_rng(7)
+        pos[:HOTSPOT_AGENTS] = (
+            rng.uniform(0.0, 2.0, (HOTSPOT_AGENTS, 2))
+            + np.asarray(hotspot_origin, np.float64))
+    return pos
+
+
+def build_bench(n_agents: int, dtype: str = "float32",
+                backend: str = "grid_pallas", device="cpu",
+                hotspot: bool = False, hotspot_origin=(10.0, 10.0)):
+    """The bench scene at ``n_agents`` on ``device``: returns (rollout,
+    params, state) like bench.py's ``build_bench``."""
+    config = bench_config(n_agents, dtype=dtype, backend=backend)
+    hl = ParityVelocity((1.0, 0.0))
+    lp = Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
+                  force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
+                  force_cap=20.0)
+    rollout = build_rollout(config, [hl], [lp])
+    f = config.tdtype
+    pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
+                          hotspot_origin=hotspot_origin)
+    state = make_state(config, device=device)
+    i32 = torch.int32
+    state = state.replace(
+        position=torch.as_tensor(pos, dtype=f).to(device),
+        eyesight=torch.full((n_agents,), 2.0, dtype=f, device=device),
+        alive=torch.ones((n_agents,), dtype=torch.bool, device=device),
+        uid=torch.arange(n_agents, dtype=i32, device=device),
+        hl_idx=torch.zeros((n_agents,), dtype=i32, device=device),
+        lp_idx=torch.zeros((n_agents,), dtype=i32, device=device),
+        priority=torch.arange(n_agents, dtype=f, device=device),
+        next_uid=torch.full((), n_agents, dtype=i32, device=device),
+    )
+    params = SimParams(hl=(hl.init_params(device),),
+                       lp=(lp.init_params(device),), sources=None)
+    return rollout, params, state

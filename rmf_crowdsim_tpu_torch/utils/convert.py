@@ -1,0 +1,59 @@
+"""Carry the JAX package's parameters and state across, as numpy arrays.
+
+No counterpart in the JAX package.  Callers turn JAX values into numpy
+first (``jax.tree.map(np.asarray, ...)`` or ``np.asarray`` per field), so
+this module, like the rest of the port, never imports JAX.  Both packages
+then compute from identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ..core.state import STATE_TENSOR_FIELDS, SimState
+from ..models.local import ZanlungoParams
+
+
+def _field(src, name):
+    return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+
+def state_from_numpy(arrays, device="cpu", seed: int = 0) -> SimState:
+    """A :class:`SimState` from the JAX state's fields as numpy arrays
+    (a mapping or an object with the field attributes).  The JAX
+    ``rng_key`` has no counterpart: the state gets a fresh generator
+    seeded with ``seed``."""
+    fields = {
+        name: torch.as_tensor(np.array(_field(arrays, name))).to(device)
+        for name in STATE_TENSOR_FIELDS
+    }
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return SimState(**fields, generator=gen)
+
+
+def state_to_numpy(state: SimState) -> dict:
+    """The state's tensor fields as numpy arrays (the inverse of
+    :func:`state_from_numpy`, without the generator)."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in STATE_TENSOR_FIELDS}
+
+
+def zanlungo_params_from_numpy(arrays, device="cpu") -> ZanlungoParams:
+    """:class:`ZanlungoParams` from the JAX ZanlungoParams' fields (0-d
+    arrays), kept in float64 like the port's own ``init_params``."""
+    return ZanlungoParams(**{
+        f.name: torch.tensor(float(np.asarray(_field(arrays, f.name))),
+                             dtype=torch.float64, device=device)
+        for f in dataclasses.fields(ZanlungoParams)
+    })
+
+
+def hl_params_from_numpy(arrays: Mapping, device="cpu") -> dict:
+    """A high-level planner's parameter dict (e.g. ``{"vel": [2]}``)."""
+    return {k: torch.as_tensor(np.array(v)).to(device)
+            for k, v in arrays.items()}

@@ -1,0 +1,138 @@
+"""Build and launch the port's CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  At the first CUDA
+call they are compiled with ``nvcc`` into one shared library in
+``_build/`` inside the package (listed in ``.gitignore``), named by a hash
+of the sources and flags, and loaded with ``ctypes``.  Nothing is built
+at import time, so the kernel modules import on machines without CUDA.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and ``-fmad=false`` so
+the kernels round every operation as the plain PyTorch versions do (see
+``csrc/zanlungo_pair.cuh``).
+
+Each C entry point launches on the stream it is given (PyTorch's current
+stream), allocates nothing, and returns ``cudaGetLastError()``;
+:func:`launch` raises if that is not ``cudaSuccess``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+# C entry points: one code per argument before the trailing stream
+# ("p" = device pointer, "i" = int).
+SIGNATURES = {
+    "crowdsim_pack_rows": "ppiipp",
+    "crowdsim_zanlungo_bucketed": "ppppiiiii",
+    "crowdsim_spill_window": "pppppppiiiii",
+}
+
+
+def _nvcc() -> str:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    cands += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> Path:
+    """Where the kernels' shared library for the current sources goes."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libcrowdsim_{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Compile (if needed) and load the kernels' shared library.  The
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside it in a ``.log`` file."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
+            capture_output=True, text=True,
+        )
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, sig in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in sig] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.crowdsim_error_string.argtypes = [ctypes.c_int]
+    lib.crowdsim_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_log() -> str:
+    """The compiler output of the current library's build ('' if it was
+    built by an earlier process and its log is gone)."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def check_tensors(caller: str, **specs) -> None:
+    """Raise unless every ``name=(tensor, dtype, shape)`` is a contiguous
+    CUDA tensor of that dtype and shape, all on one device."""
+    devices = set()
+    for name, (t, dtype, shape) in specs.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{caller}: {name} must be a CUDA tensor, "
+                             f"got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{caller}: {name} must be {dtype}, got "
+                             f"{t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{caller}: {name} must have shape "
+                             f"{tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{caller}: {name} must be contiguous")
+        devices.add(t.device)
+    if len(devices) > 1:
+        raise ValueError(f"{caller}: tensors on several devices {devices}")
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name`` with tensors passed as device pointers
+    and ints as ints, on the current stream of the tensors' device."""
+    lib = library()
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+             for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*cargs, stream)
+    if err != 0:
+        msg = lib.crowdsim_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -1,0 +1,103 @@
+"""Where a step of the port's bench rollout spends its time, on one GPU.
+
+    python -m rmf_crowdsim_tpu_torch.utils.profile_step --n 1000000 100000
+
+For each agent count: the bench scene (``scenes.build_bench``) runs a
+warm-up, then ``--steps`` steps timed on the host clock around
+``torch.cuda.synchronize()``; after all timings, each count runs the
+same number of steps under ``torch.profiler``.  Printed per count:
+ms/step and steps/s (unprofiled), the device's busy time per step and its
+idle share (kernel time over the unprofiled wall time), kernel launches
+per step, and the kernels that take the most device time.  Needs a CUDA
+device; raises without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import subprocess
+import time
+
+import torch
+
+from .. import scenes
+
+DT = 1.0 / 60.0
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def _bench(n: int):
+    """The bench scene at ``n`` on the card, after a 3-step warm-up."""
+    rollout, params, st = scenes.build_bench(n, device=torch.device("cuda"))
+    st, _ = rollout(params, st, DT, 3)
+    torch.cuda.synchronize()
+    return rollout, params, st
+
+
+def time_steps(n: int, steps: int) -> dict:
+    """ms/step on the host clock around synchronized steps, no profiler."""
+    rollout, params, st = _bench(n)
+    t0 = time.perf_counter()
+    st, counters = rollout(params, st, DT, steps)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return dict(wall_ms=wall_ms, steps_per_s=1e3 / wall_ms,
+                truncated=int(counters.neighbor_truncated.max()))
+
+
+def profile(n: int, steps: int, top: int) -> dict:
+    """Device time per step by kernel, from ``torch.profiler``."""
+    rollout, params, st = _bench(n)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        st, _ = rollout(params, st, DT, steps)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us() / 1e3
+    return dict(
+        device_busy_ms=sum(v[1] for v in by_name.values()) / steps,
+        launches_per_step=len(kernels) / steps,
+        top=sorted(((v[1] / steps, v[0] / steps, k)
+                    for k, v in by_name.items()), reverse=True)[:top],
+    )
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, nargs="+", default=[1_000_000])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_step needs a CUDA device")
+    print(f"card: {card_line()}")
+    # Every timing runs before the first profiler session: the profiler's
+    # tracing can stay attached and slow later launches.
+    timed = {n: time_steps(n, args.steps) for n in args.n}
+    for n in args.n:
+        r = {**timed[n], **profile(n, args.steps, args.top)}
+        print(f"n={n}: {r['wall_ms']:.3f} ms/step = {r['steps_per_s']:.2f} "
+              f"steps/s; device busy {r['device_busy_ms']:.3f} ms/step, "
+              f"idle share {1 - r['device_busy_ms'] / r['wall_ms']:.3f}; "
+              f"{r['launches_per_step']:.1f} kernel launches/step; "
+              f"truncated {r['truncated']}")
+        for ms, count, name in r["top"]:
+            print(f"  {ms:8.4f} ms/step  {count:6.1f}/step  {name[:100]}")
+
+
+if __name__ == "__main__":
+    main()
