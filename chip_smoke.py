@@ -8,15 +8,23 @@ repository beside it).  Phases, each printing its own line:
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. build: compile the CUDA kernels from ``rmf_crowdsim_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card, at the
-   1M-agent bench scene's shapes: K3 (pack) bitwise, K1 (force) and K2
-   (spill window) to rtol = atol = 2e-4 on live rows with integer
-   priorities on and off; times of both;
-4. gate (the port of bench.py's ``compiled_parity_check``): the 4,096-agent
-   bench scene with the 48-agent hotspot, 5 steps at dt = 1/60,
-   ``grid_pallas`` against ``brute`` by uid to 2e-4, zero truncation;
-5. main path: the 1M-agent bench scene through ``build_rollout``: a
-   warm-up, then 20 timed steps; zero truncation, finite state, and every
-   kernel launched; then the host syncs per step, counted.
+   1M-agent bench scene's shapes (with the 48-agent hotspot): K3 (pack)
+   bitwise, K1 (force), K2 (spill window), K1b (force with the fused
+   spill segment) and K4 (the dense ``grid_dense`` force kernel) to
+   rtol = atol = 2e-4 on live rows with integer priorities on and off;
+   times of both; then the 1M fused-spill pass against the spill-patch
+   pass on the same state, to 2e-4;
+4. gates (the port of bench.py's ``compiled_parity_check``): the
+   4,096-agent bench scene with the 48-agent hotspot, 5 steps at
+   dt = 1/60, against ``brute`` by uid to 2e-4 with zero truncation:
+   ``grid_pallas``, ``grid_pallas`` with ``fused_spills=True`` and
+   ``grid_dense``;
+5. the 1M-agent bench scene through ``build_rollout`` on three paths:
+   the main path (``grid_pallas``), path A (``grid_dense``) and path B
+   (``grid_pallas`` with ``fused_spills=True``).  Each: a warm-up, then
+   20 timed steps with the launch counts set to 0 just before and read
+   just after; zero truncation, finite state, no agent lost, and every
+   kernel of the path launched; then its host syncs per step, counted.
 
 Then one JSON line of per-kernel results, the card's line, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure raises.
@@ -60,6 +68,66 @@ def _timed_pair(torch, kernel, plain, reps: int):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def _drive(torch, name, rollout, params, st, kernels, required, absent,
+           card, n_steps=20):
+    """One 1M path of phase 5: warm-up, ``n_steps`` timed steps with every
+    launch count of ``kernels`` ({name: wrapper}) set to 0 just before
+    and read just after, checks (each kernel named in ``required``
+    launched, none in ``absent``), then the host syncs per step.  Returns
+    the launch counts."""
+    st, _ = rollout(params, st, DT, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    st, c = rollout(params, st, DT, n_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    missing = [k for k in required if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} never launched {missing}")
+    stray = [k for k in absent if launches[k]]
+    if stray:
+        raise AssertionError(f"{name} launched {stray}")
+    truncated = int(c.neighbor_truncated.max())
+    if truncated:
+        raise AssertionError(f"{name} truncates {truncated}")
+    if tuple(st.position.shape) != (N_MAIN, 2) or not bool(
+            torch.isfinite(st.position).all()):
+        raise AssertionError(f"{name} state is not finite [N, 2]")
+    if int(c.n_alive.min()) != N_MAIN:
+        raise AssertionError(f"{name} lost agents")
+    print(f"phase 5 {name}: {N_MAIN} agents, {n_steps} steps in "
+          f"{wall:.4f} s = {n_steps / wall:.2f} steps/s, "
+          f"{1e3 * wall / n_steps:.3f} ms/step on '{card}'; launches "
+          f"{launches}; max tile occupancy "
+          f"{int(c.max_cell_occupancy.max())}; truncated 0; peak "
+          f"{peak_gb:.2f} GB", flush=True)
+
+    n_sync_steps = 3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            st, _ = rollout(params, st, DT, n_sync_steps)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Each warning names the Python line that called the synchronizing op.
+    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    sites = {s: syncs.count(s) for s in sorted(set(syncs))}
+    per_step = len(syncs) / n_sync_steps
+    print(f"phase 5 {name} host syncs: {len(syncs)} in {n_sync_steps} "
+          f"steps ({per_step:.2f} per step) at {sites}", flush=True)
+    if per_step > 1:
+        raise AssertionError(f"{name} makes {per_step} host syncs per step")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -74,6 +142,7 @@ def main() -> int:
     from rmf_crowdsim_tpu_torch.models.highlevel import ParityVelocity
     from rmf_crowdsim_tpu_torch.ops import pack, spill
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
     from rmf_crowdsim_tpu_torch.utils import cuda_build
     from rmf_crowdsim_tpu_torch.utils.profile_step import card_line
 
@@ -186,83 +255,177 @@ def main() -> int:
               f"{e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms", flush=True)
     results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1])
+
+    # K1b: the fused-spill discovery of zanlungo_fused on this state.
+    c_f, sp_f, f_tcx, f_tcy = spill.spill_rows(
+        bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
+        st.eyesight, st.alive, rec, bucket_pos,
+        min(zb.FUSED_SPILL_LANES, config.spill_capacity))
+    sflag = spill.spill_flags(bcfg, f_tcx, f_tcy, c_f.valid)
+    sp_fT = spill.spill_candidates(sp_f)
+    n_flagged = int((sflag > 0).sum())
+    if n_flagged == 0:
+        raise AssertionError("K1b: no sub-block is flagged")
+    flagged = zb.slot_flags(bcfg, sflag)
+    err1b, t1b = 0.0, []
+    for int_prio in (True, False):
+        out_k = zb.zanlungo_forces_bucketed_spill(
+            bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio=int_prio)
+        out_p = zb.forces_bucketed_spill_plain(
+            bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio)
+        out_1 = zb.zanlungo_forces_bucketed(bcfg, zp5, packed_t, packed_T,
+                                            int_prio=int_prio)
+        torch.testing.assert_close(out_k[live], out_p[live], rtol=TOL,
+                                   atol=TOL)
+        if not torch.equal(out_k[~flagged], out_1[~flagged]):
+            raise AssertionError("K1b differs from K1 on unflagged slots")
+        n_changed = int(((out_k - out_1).abs().sum(1) > 0).sum())
+        e = (out_k[live] - out_p[live]).abs().max().item()
+        err1b = max(err1b, e)
+        ms, pms = _timed_pair(
+            torch, lambda: zb.zanlungo_forces_bucketed_spill(
+                bcfg, zp5, packed_t, packed_T, sflag, sp_fT,
+                int_prio=int_prio),
+            lambda: zb.forces_bucketed_spill_plain(
+                bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio), 3)
+        t1b.append((ms, pms))
+        print(f"phase 3 K1b zanlungo_bucketed_spill int_prio={int_prio}: "
+              f"{int(c_f.count)} spills, {n_flagged} flagged sub-blocks "
+              f"({int(flagged.sum())} slots, {n_changed} changed vs K1, "
+              f"the rest bitwise K1); max abs err {e:.3g} (tol {TOL}); "
+              f"kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+    results["zanlungo_bucketed_spill"] = dict(err=err1b, ms=t1b[0][0],
+                                              plain_ms=t1b[0][1])
+
+    # The whole fused pass against the spill-patch pass, same state.
+    passes = {}
+    for fused in (True, False):
+        vel, _, dropped = zb.zanlungo_fused(
+            bcfg, params.lp[0], st.position, st.velocity, rec,
+            st.preferred_vel, st.priority, st.eyesight, st.alive, rec,
+            use_pack_kernel=True, spill_capacity=config.spill_capacity,
+            presorted=True, int_prio=True, fused_spills=fused)
+        if int(dropped):
+            raise AssertionError(f"fused_spills={fused} drops {dropped}")
+        passes[fused] = vel
+    a = st.alive
+    torch.testing.assert_close(passes[True][a], passes[False][a], rtol=TOL,
+                               atol=TOL)
+    e = (passes[True][a] - passes[False][a]).abs().max().item()
+    print(f"phase 3 fused pass: {N_MAIN} agents, fused_spills=True vs the "
+          f"spill patch: max abs err {e:.3g} (tol {TOL}); dropped 0",
+          flush=True)
     del (rollout, params, st, feat_t, packed_t, packed_T, plain_t, plain_T,
-         out_k, out_p)
+         out_k, out_p, out_1, passes)
     torch.cuda.empty_cache()
 
-    # ---- phase 4: gate, grid_pallas against brute -----------------------
+    # K4 at the 1M bench grid_dense shapes.
+    dconfig = scenes.bench_config(N_MAIN, backend="grid_dense")
+    dcfg = zd.DenseConfig.create(
+        dconfig.grid.width, dconfig.grid.height, dconfig.grid.offset,
+        dconfig.max_eyesight, N_MAIN, tile_size=dconfig.bucket_tile_size,
+        col_headroom=dconfig.dense_col_headroom)
+    rollout, params, st = scenes.build_bench(N_MAIN, backend="grid_dense",
+                                             device=dev, hotspot=True)
+    st, _ = rollout(params, st, DT, 2)
+    st, _, key = payload_sort_by_key(
+        st, zb.tile_key(dcfg, st.position, st.alive),
+        torch.zeros_like(st.alive))
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat, tile_start, dbpos, n_col_over, occ = zd.dense_prep(
+        dcfg, key, st.position, st.velocity, st.preferred_vel, rec,
+        st.priority, st.eyesight, rec, st.alive)
+    if int(n_col_over):
+        raise AssertionError(f"K4: {int(n_col_over)} rows past col_cap")
+    rows = dbpos[st.alive & (dbpos < dcfg.slots)].long()
+    err4, t4 = 0.0, []
+    for int_prio in (True, False):
+        out_k = zd.zanlungo_forces_dense(dcfg, zp5, feat, tile_start,
+                                         int_prio=int_prio)
+        out_p = zd.forces_dense_plain(dcfg, zp5, feat, tile_start, int_prio)
+        n_forced = int(((out_p[rows] - feat[st.alive, 8:10]).abs().sum(1)
+                        > 0).sum())
+        torch.testing.assert_close(out_k[rows], out_p[rows], rtol=TOL,
+                                   atol=TOL)
+        e = (out_k[rows] - out_p[rows]).abs().max().item()
+        err4 = max(err4, e)
+        ms, pms = _timed_pair(
+            torch, lambda: zd.zanlungo_forces_dense(
+                dcfg, zp5, feat, tile_start, int_prio=int_prio),
+            lambda: zd.forces_dense_plain(dcfg, zp5, feat, tile_start,
+                                          int_prio), 3)
+        t4.append((ms, pms))
+        print(f"phase 3 K4 zanlungo_dense int_prio={int_prio}: "
+              f"{rows.shape[0]} live rows ({n_forced} with forces) in "
+              f"{dcfg.slots} padded rows ({dcfg.tx} columns of "
+              f"{dcfg.col_cap}), max tile occupancy {int(occ)}; max abs "
+              f"err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms", flush=True)
+    results["zanlungo_dense"] = dict(err=err4, ms=t4[0][0],
+                                     plain_ms=t4[0][1])
+    del rollout, params, st, feat, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: gates against brute ----------------------------------
+    gates = {"grid_pallas": dict(backend="grid_pallas"),
+             "grid_pallas fused_spills": dict(backend="grid_pallas",
+                                              fused_spills=True),
+             "grid_dense": dict(backend="grid_dense")}
     outs, occs = {}, {}
-    for backend in ("brute", "grid_pallas"):
-        rollout, params, st = scenes.build_bench(
-            N_GATE, backend=backend, device=dev, hotspot=True)
+    for name, kw in {"brute": dict(backend="brute"), **gates}.items():
+        rollout, params, st = scenes.build_bench(N_GATE, device=dev,
+                                                 hotspot=True, **kw)
         st, c = rollout(params, st, DT, 5)
         truncated = int(c.neighbor_truncated.max())
         if truncated:
             raise AssertionError(f"gate scene truncates {truncated} on "
-                                 f"{backend}")
-        outs[backend] = st.position[torch.argsort(st.uid)]
-        occs[backend] = int(c.max_cell_occupancy.max())
-    if occs["grid_pallas"] <= config.bucket_capacity:
-        raise AssertionError("gate scene does not overflow a bucket")
-    torch.testing.assert_close(outs["grid_pallas"], outs["brute"],
-                               rtol=TOL, atol=TOL)
-    gate_err = (outs["grid_pallas"] - outs["brute"]).abs().max().item()
-    print(f"phase 4 gate: {N_GATE} agents + hotspot, 5 steps, grid_pallas "
-          f"vs brute by uid: max abs err {gate_err:.3g} (tol {TOL}); max "
-          f"tile occupancy {occs['grid_pallas']}; truncated 0", flush=True)
+                                 f"{name}")
+        outs[name] = st.position[torch.argsort(st.uid)]
+        occs[name] = int(c.max_cell_occupancy.max())
+    for name in gates:
+        if name.startswith("grid_pallas") and (
+                occs[name] <= config.bucket_capacity):
+            raise AssertionError(f"gate scene does not overflow a bucket "
+                                 f"on {name}")
+        torch.testing.assert_close(outs[name], outs["brute"], rtol=TOL,
+                                   atol=TOL)
+        gate_err = (outs[name] - outs["brute"]).abs().max().item()
+        print(f"phase 4 gate {name}: {N_GATE} agents + hotspot, 5 steps, "
+              f"vs brute by uid: max abs err {gate_err:.3g} (tol {TOL}); "
+              f"max tile occupancy {occs[name]}; truncated 0", flush=True)
 
-    # ---- phase 5: main path, the 1M bench scene --------------------------
+    # ---- phase 5: the 1M bench scene on three paths ----------------------
     kernels = {
         "pack_rows": pack.pack_rows,
         "zanlungo_bucketed": zb.zanlungo_forces_bucketed,
         "spill_window": spill.spill_window,
+        "zanlungo_bucketed_spill": zb.zanlungo_forces_bucketed_spill,
+        "zanlungo_dense": zd.zanlungo_forces_dense,
     }
-    rollout, params, st = scenes.build_bench(N_MAIN, device=dev)
-    st, _ = rollout(params, st, DT, 2)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    n_steps = 20
-    t0 = time.perf_counter()
-    st, c = rollout(params, st, DT, n_steps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    missing = [name for name, k in launches.items() if k == 0]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    truncated = int(c.neighbor_truncated.max())
-    if truncated:
-        raise AssertionError(f"main path truncates {truncated}")
-    if tuple(st.position.shape) != (N_MAIN, 2) or not bool(
-            torch.isfinite(st.position).all()):
-        raise AssertionError("main path state is not finite [N, 2]")
-    if int(c.n_alive.min()) != N_MAIN:
-        raise AssertionError("main path lost agents")
-    print(f"phase 5 main: {N_MAIN} agents, {n_steps} steps in {wall:.4f} s"
-          f" = {n_steps / wall:.2f} steps/s, {1e3 * wall / n_steps:.3f} "
-          f"ms/step on '{card}'; launches {launches}; max tile occupancy "
-          f"{int(c.max_cell_occupancy.max())}; truncated 0; peak "
-          f"{peak_gb:.2f} GB", flush=True)
-
-    n_sync_steps = 3
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            st, _ = rollout(params, st, DT, n_sync_steps)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # Each warning names the Python line that called the synchronizing op.
-    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
-    sites = {s: syncs.count(s) for s in sorted(set(syncs))}
-    print(f"phase 5 host syncs: {len(syncs)} in {n_sync_steps} steps "
-          f"({len(syncs) / n_sync_steps:.2f} per step) at {sites}",
-          flush=True)
+    # (scene options, kernels that must launch, kernels that must not)
+    paths = {
+        "main grid_pallas": (
+            dict(backend="grid_pallas"),
+            ("pack_rows", "zanlungo_bucketed", "spill_window"),
+            ("zanlungo_bucketed_spill", "zanlungo_dense")),
+        "path A grid_dense": (
+            dict(backend="grid_dense"), ("zanlungo_dense",),
+            ("pack_rows", "zanlungo_bucketed", "spill_window",
+             "zanlungo_bucketed_spill")),
+        "path B grid_pallas fused_spills": (
+            dict(backend="grid_pallas", fused_spills=True),
+            ("pack_rows", "zanlungo_bucketed_spill"),
+            ("zanlungo_bucketed", "zanlungo_dense")),
+    }
+    launches = {}
+    for name, (kw, required, absent) in paths.items():
+        rollout, params, st = scenes.build_bench(N_MAIN, device=dev, **kw)
+        counts = _drive(torch, name, rollout, params, st, kernels, required,
+                        absent, card)
+        for k in required:
+            launches.setdefault(k, counts[k])
+        del rollout, params, st
+        torch.cuda.empty_cache()
 
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
@@ -272,13 +435,18 @@ def main() -> int:
             "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1348"),
         "spill_window": ("rmf_crowdsim_tpu_torch/csrc/spill_window.cu",
                          "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1867"),
+        "zanlungo_bucketed_spill": (
+            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cu",
+            "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1403"),
+        "zanlungo_dense": ("rmf_crowdsim_tpu_torch/csrc/zanlungo_dense.cu",
+                           "rmf_crowdsim_tpu/ops/zanlungo_dense.py:878"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
          "max_abs_err": results[name]["err"], "ms": results[name]["ms"],
          "plain_ms": results[name]["plain_ms"]}
-        for name in kernels
+        for name in source
     ]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

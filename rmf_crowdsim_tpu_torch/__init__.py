@@ -3,10 +3,11 @@
 The port of ``rmf_crowdsim_tpu`` (the JAX package, which stays the
 reference) to PyTorch on one NVIDIA Hopper GPU.  Module names follow the
 JAX package's; each module's docstring names its counterpart.  The slice
-ported so far is the bench path: ``build_rollout`` on the ``brute`` and
-``grid_pallas`` backends, with the force, pack and spill-window kernels
-written in CUDA (``csrc/``) and built at their first use.  The package
-imports ``torch`` and never JAX.
+ported so far is the bench path: ``build_rollout`` on the ``brute``,
+``grid_pallas`` (with or without fused spills) and ``grid_dense``
+backends, with the force, fused-spill force, dense force, pack and
+spill-window kernels written in CUDA (``csrc/``) and built at their
+first use.  The package imports ``torch`` and never JAX.
 """
 
 from .core.config import GridConfig, SimConfig

@@ -30,7 +30,7 @@ BACKEND_CUSTOM = "custom"
 
 # Backends the port runs so far; the others are accepted by the config
 # (one spec serves both packages) and refused by build_step.
-PORTED_BACKENDS = (BACKEND_BRUTE, BACKEND_GRID_PALLAS)
+PORTED_BACKENDS = (BACKEND_BRUTE, BACKEND_GRID_PALLAS, BACKEND_GRID_DENSE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +73,8 @@ class SimConfig:
     spawn_clearance: float = 0.4
     dtype: str = "float32"
     commit_preferred_vel: bool = False
-    # --- grid_pallas backend (ops/zanlungo_bucketed.py) -------------------
+    # --- grid_pallas / grid_dense backends (ops/zanlungo_bucketed.py,
+    # ops/zanlungo_dense.py) ----------------------------------------------
     bucket_capacity: int = 16
     strip_tiles: int = 96
     sub_tiles: int = 6

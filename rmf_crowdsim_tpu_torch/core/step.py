@@ -1,9 +1,10 @@
 """The simulation step and the multi-step rollout.
 
-Counterpart of ``rmf_crowdsim_tpu/core/step.py`` for the ``brute`` and
-``grid_pallas`` backends: ``SimParams``, ``payload_sort_by_key``, the
-high-level, sink and finish phases, ``build_step`` with the presort and
-the skin-deferred re-sort, ``RolloutCounters`` and ``build_rollout``.
+Counterpart of ``rmf_crowdsim_tpu/core/step.py`` for the ``brute``,
+``grid_pallas`` and ``grid_dense`` backends: ``SimParams``,
+``payload_sort_by_key``, the high-level, sink and finish phases,
+``build_step`` with the presort and the skin-deferred re-sort,
+``RolloutCounters`` and ``build_rollout``.
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` becomes a Python
 loop and its on-device branches become host decisions or branch-free
@@ -13,8 +14,8 @@ stays on the device without a host read.
 
 Not ported yet (they raise ``NotImplementedError``): SourceSink spawning
 and waypoint bookkeeping (``params.sources``), per-uid event streams
-(``event_capacity > 0``), the ``grid``, ``grid_dense`` and ``custom``
-backends, and domain decomposition.
+(``event_capacity > 0``), the ``grid`` and ``custom`` backends, and
+domain decomposition.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..ops import grid as grid_ops
 from ..ops import neighbors as nbr_ops
 from .config import (
     BACKEND_BRUTE,
+    BACKEND_GRID_DENSE,
     BACKEND_GRID_PALLAS,
     PORTED_BACKENDS,
     SimConfig,
@@ -145,8 +147,9 @@ def _finish_phase(config: SimConfig, hl_planners, params: SimParams,
 def build_step(config: SimConfig, hl_planners: Sequence[Any],
                lp_planners: Sequence[Any], skin_mode: bool = False):
     """Construct ``step(params, state, dt) -> (state, events)``, or with a
-    granted ``skin_mode`` (presorted grid_pallas with a positive skin
-    margin; see the returned function's ``skin_mode`` attribute)
+    granted ``skin_mode`` (presorted grid_pallas or grid_dense with a
+    positive skin margin; see the returned function's ``skin_mode``
+    attribute)
     ``step(params, state, dt, skin) -> (state, events, skin)``, which
     re-sorts only when an agent has moved more than the skin margin
     ``(tile_size - max_eyesight) / 2`` since the last sort or an agent
@@ -168,10 +171,23 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             strip_tiles=config.strip_tiles, sub_tiles=config.sub_tiles,
             tile_size=config.bucket_tile_size or None,
         )
-    presort = bool(config.presort and bucket_cfg is not None)
+    dense_cfg = None
+    if config.neighbor_backend == BACKEND_GRID_DENSE:
+        from ..ops.zanlungo_dense import DenseConfig
+
+        dense_cfg = DenseConfig.create(
+            config.grid.width, config.grid.height, config.grid.offset,
+            config.max_eyesight, config.capacity,
+            tile_size=config.bucket_tile_size or None,
+            col_headroom=config.dense_col_headroom,
+        )
+    # The dense layout IS the sorted order, so grid_dense implies presort.
+    presort = bool((config.presort and bucket_cfg is not None)
+                   or dense_cfg is not None)
+    sort_cfg = dense_cfg if dense_cfg is not None else bucket_cfg
     skin_margin = 0.0
-    if bucket_cfg is not None:
-        skin_margin = (float(bucket_cfg.tile_size)
+    if sort_cfg is not None:
+        skin_margin = (float(sort_cfg.tile_size)
                        - float(config.max_eyesight)) / 2.0
     skin_mode = bool(skin_mode and presort and skin_margin > 0.0)
 
@@ -179,7 +195,7 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
         from ..ops.zanlungo_bucketed import tile_key
 
         return payload_sort_by_key(
-            state, tile_key(bucket_cfg, state.position, state.alive),
+            state, tile_key(sort_cfg, state.position, state.alive),
             spawned)
 
     def step(params: SimParams, state: SimState, dt: float, skin=None):
@@ -190,6 +206,7 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
         spawn_dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
         binning = None
+        dense_key = None
         skin_out = None
         if skin_mode:
             from ..ops.zanlungo_bucketed import rank_from_sorted_key
@@ -203,17 +220,25 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             resort = bool(need.item())
             if resort:
                 state, spawned, key = _presort_state(state, spawned)
-                bpos, occ, nover = rank_from_sorted_key(bucket_cfg, key)
+                if dense_cfg is not None:
+                    # The dense pass derives its tables from the sorted
+                    # key each step; only the key is carried.
+                    bpos = torch.zeros((n,), dtype=torch.int32, device=dev)
+                    occ = torch.zeros((), dtype=torch.int32, device=dev)
+                    nover = torch.zeros((), dtype=torch.int32, device=dev)
+                else:
+                    bpos, occ, nover = rank_from_sorted_key(bucket_cfg, key)
                 ref = state.position
             else:
                 key, bpos, occ, nover, ref = (
                     skin["key"], skin["bpos"], skin["max_occ"],
                     skin["n_over"], skin["ref"])
             binning = (key, bpos, occ, nover)
+            dense_key = key
             skin_out = dict(key=key, bpos=bpos, max_occ=occ, n_over=nover,
                             ref=ref, resorted=resort)
         elif presort:
-            state, spawned, _ = _presort_state(state, spawned)
+            state, spawned, dense_key = _presort_state(state, spawned)
 
         vel, self_pref, state = _hl_phase(config, hl_planners, params, state)
 
@@ -221,9 +246,11 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
         truncated = torch.zeros((), dtype=torch.int32, device=dev)
         if lp_planners:
             use_fused = bucket_cfg is not None
+            use_dense = dense_cfg is not None
             need_nbr = any(
                 getattr(p, "needs_neighbors", True)
-                and not (use_fused and hasattr(p, "plan_fused"))
+                and not ((use_fused and hasattr(p, "plan_fused"))
+                         or (use_dense and hasattr(p, "plan_fused_dense")))
                 for p in lp_planners
             )
             nbr = None
@@ -237,7 +264,14 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                 max_occ = nbr.max_cell_occupancy
                 truncated = truncated + nbr.truncated
             for i, planner in enumerate(lp_planners):
-                if use_fused and hasattr(planner, "plan_fused"):
+                if use_dense and hasattr(planner, "plan_fused_dense"):
+                    v, occ, dropped = planner.plan_fused_dense(
+                        params.lp[i], dense_cfg, state, vel, self_pref,
+                        dense_key, int_prio=config.integer_priorities,
+                    )
+                    max_occ = torch.maximum(max_occ, occ)
+                    truncated = truncated + dropped
+                elif use_fused and hasattr(planner, "plan_fused"):
                     v, occ, dropped = planner.plan_fused(
                         params.lp[i], bucket_cfg, state, vel, self_pref,
                         use_pack_kernel=config.use_pack_kernel,
@@ -303,7 +337,8 @@ def build_rollout(config: SimConfig, hl_planners: Sequence[Any],
                   lp_planners: Sequence[Any], event_capacity: int = 0):
     """Construct ``rollout(params, state, dt, n_steps) -> (state,
     RolloutCounters)``: ``n_steps`` steps in a Python loop, on the
-    presorted grid_pallas path with the skin-deferred re-sort
+    presorted grid_pallas and grid_dense paths with the skin-deferred
+    re-sort
     (core/step.py:753).  Per-uid event streams (``event_capacity > 0``)
     are not ported yet."""
     if event_capacity:

@@ -1,14 +1,21 @@
-// K1: fused neighbour search + Zanlungo force over the bucketed plane.
+// K1: fused neighbour search + Zanlungo force over the bucketed plane,
+// and K1b: the same with the fused-spill candidate segment.
 //
 // Replaces the TPU kernel rmf_crowdsim_tpu/ops/zanlungo_pallas.py:
 // zanlungo_forces_bucketed / _make_kernel (Pallas, one program per column
-// strip with strip-resident VMEM windows and one-hot MXU compaction).
+// strip with strip-resident VMEM windows and one-hot MXU compaction); K1b
+// replaces its spill_ext variant (zanlungo_pallas.py:1365-1437, the
+// fourth segment at :1301-1314).
 //
 // Contract (ops/zanlungo_bucketed.py): for every live slot (id >= 0),
 // out = rec + F / m, where t_i is the minimum time to collision over the
 // live candidates in the 3x3 tiles around the query's tile with strict
 // d^2 < eye^2 and another id, and F (the sum of pair forces over the same
 // set) applies only where t_i is finite.  Empty slots get their rec row.
+// K1b: a query whose sub-block (tiles tcy / sub_tiles of its column, the
+// JAX sub-block index) has a nonzero sflag also takes the live lanes of
+// the spill plane sp_T [NUM_CAND, n_sp] as candidates, in both passes,
+// after the window; other queries run K1's exact instruction sequence.
 //
 // Design.  One block per run of T tiles of one tile column, one thread
 // per query slot (T * bucket threads).  The block stages the 8 candidate
@@ -18,7 +25,9 @@
 // the neighbouring column).  Each thread then makes two passes over its
 // 9 * bucket candidates, read from shared memory as warp-wide broadcasts:
 // the min TTC, then the force sum.  A block whose tiles hold no live
-// agent writes rec and returns before staging.
+// agent writes rec and returns before staging.  K1b stages the spill plane
+// (4 KB at n_sp = 128) behind the window, only in blocks that hold a
+// flagged live query.
 //
 // Bound on the H100: work, not bytes.  At the 1M bench scene the kernel
 // reads the 59 MB candidate plane ~3.75 times (halo re-reads, mostly from
@@ -28,20 +37,24 @@
 // bound.  The design keeps every candidate read in shared memory and does
 // the pair math only behind the mask; fewer mask tests (sorting
 // candidates within a tile, or a cell list finer than the tile) are work
-// for later.
+// for later.  K1b adds 2 x n_sp mask tests to the few flagged queries.
 #include <cuda_runtime.h>
 
 #include "zanlungo_pair.cuh"
 
 namespace crowdsim {
 
-template <bool INT_PRIO>
+template <bool INT_PRIO, bool SPILL>
 __global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
                                          const float* __restrict__ packed_t,
                                          const float* __restrict__ packed_T,
+                                         const int* __restrict__ sflag,
+                                         const float* __restrict__ sp_T,
                                          float* __restrict__ out, int tx,
-                                         int ty, int bucket, int T) {
-  extern __shared__ float stage[];  // [NUM_CAND][3][W]
+                                         int ty, int bucket, int T,
+                                         int sub_tiles, int n_sp) {
+  // [NUM_CAND][3][W]; K1b: then [NUM_CAND][n_sp].
+  extern __shared__ float stage[];
   const long long slots = (long long)tx * ty * bucket;
   const int runs = (ty + T - 1) / T;
   const int tcx = blockIdx.x / runs;
@@ -76,6 +89,17 @@ __global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
           ok ? packed_T[f * slots + s] : sentinel_feature(f);
     }
   }
+  // K1b: the query's sub-block flag, and the spill plane where needed.
+  bool flagged = false;
+  float* sp = stage + NUM_CAND * 3 * W;
+  if (SPILL) {
+    flagged =
+        in_world && sflag[tcx * (ty / sub_tiles) + tcy / sub_tiles] > 0;
+    if (__syncthreads_or(live && flagged)) {
+      for (int i = threadIdx.x; i < NUM_CAND * n_sp; i += blockDim.x)
+        sp[i] = sp_T[i];
+    }
+  }
   __syncthreads();
   if (!in_world) return;
 
@@ -105,6 +129,19 @@ __global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
         }
       }
     }
+    if (SPILL && flagged) {
+      const float* px = sp + ROW_PX * n_sp;
+      const float* py = sp + ROW_PY * n_sp;
+      const float* vx = sp + ROW_VX * n_sp;
+      const float* vy = sp + ROW_VY * n_sp;
+      const float* id = sp + ROW_ID * n_sp;
+      for (int j = 0; j < n_sp; ++j) {
+        if (pair_mask(q, px[j], py[j], id[j])) {
+          t_i = fminf(t_i, pair_ttc(q, vx[j], vy[j], px[j], py[j],
+                                    zp.agent_radius));
+        }
+      }
+    }
 
     if (isfinite(t_i)) {
       const float inv_t = 1.f / (t_i > 0.f ? t_i : 1.f);
@@ -128,6 +165,23 @@ __global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
           }
         }
       }
+      if (SPILL && flagged) {
+        const float* px = sp + ROW_PX * n_sp;
+        const float* py = sp + ROW_PY * n_sp;
+        const float* vx = sp + ROW_VX * n_sp;
+        const float* vy = sp + ROW_VY * n_sp;
+        const float* fxr = sp + ROW_FX * n_sp;
+        const float* fyr = sp + ROW_FY * n_sp;
+        const float* pr = sp + ROW_PRIO * n_sp;
+        const float* id = sp + ROW_ID * n_sp;
+        for (int j = 0; j < n_sp; ++j) {
+          if (pair_mask(q, px[j], py[j], id[j])) {
+            pair_force<INT_PRIO>(zp, t_i, inv_t, neg_inv_fd, q, px[j], py[j],
+                                 vx[j], vy[j], fxr[j], fyr[j], pr[j], fx,
+                                 fy);
+          }
+        }
+      }
       const float inv_mass = 1.f / zp.agent_mass;
       ox = q.rx + fx * inv_mass;
       oy = q.ry + fy * inv_mass;
@@ -137,21 +191,33 @@ __global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
   out[2 * qs + 1] = oy;
 }
 
-template <bool INT_PRIO>
+template <bool INT_PRIO, bool SPILL>
 static cudaError_t launch(const float* zp5, const float* packed_t,
-                          const float* packed_T, float* out, int tx, int ty,
-                          int bucket, int T, cudaStream_t stream) {
+                          const float* packed_T, const int* sflag,
+                          const float* sp_T, float* out, int tx, int ty,
+                          int bucket, int T, int sub_tiles, int n_sp,
+                          cudaStream_t stream) {
   const int runs = (ty + T - 1) / T;
-  const size_t smem = sizeof(float) * NUM_CAND * 3 * (T + 2) * bucket;
-  auto kernel = zanlungo_bucketed_kernel<INT_PRIO>;
+  const size_t smem =
+      sizeof(float) * NUM_CAND * (3 * (T + 2) * bucket + (SPILL ? n_sp : 0));
+  auto kernel = zanlungo_bucketed_kernel<INT_PRIO, SPILL>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<tx * runs, T * bucket, smem, stream>>>(zp5, packed_t, packed_T,
-                                                  out, tx, ty, bucket, T);
+  kernel<<<tx * runs, T * bucket, smem, stream>>>(
+      zp5, packed_t, packed_T, sflag, sp_T, out, tx, ty, bucket, T,
+      sub_tiles, n_sp);
   return cudaGetLastError();
+}
+
+// Tiles per block: blocks of more than 1024 threads cannot launch, so
+// shrink the run.
+static int run_tiles(int tiles_per_block, int bucket) {
+  int T = tiles_per_block;
+  while (T > 1 && T * bucket > 1024) --T;
+  return T;
 }
 
 }  // namespace crowdsim
@@ -162,16 +228,35 @@ extern "C" int crowdsim_zanlungo_bucketed(const float* zp5,
                                           int tx, int ty, int bucket,
                                           int tiles_per_block, int int_prio,
                                           void* stream) {
-  // Blocks of more than 1024 threads cannot launch: shrink the run.
-  int T = tiles_per_block;
-  while (T > 1 && T * bucket > 1024) --T;
+  const int T = crowdsim::run_tiles(tiles_per_block, bucket);
   if (T * bucket > 1024) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e =
-      int_prio ? crowdsim::launch<true>(zp5, packed_t, packed_T, out, tx, ty,
-                                        bucket, T, s)
-               : crowdsim::launch<false>(zp5, packed_t, packed_T, out, tx,
-                                         ty, bucket, T, s);
+      int_prio ? crowdsim::launch<true, false>(zp5, packed_t, packed_T,
+                                               nullptr, nullptr, out, tx, ty,
+                                               bucket, T, 1, 0, s)
+               : crowdsim::launch<false, false>(zp5, packed_t, packed_T,
+                                                nullptr, nullptr, out, tx, ty,
+                                                bucket, T, 1, 0, s);
+  return (int)e;
+}
+
+extern "C" int crowdsim_zanlungo_bucketed_spill(
+    const float* zp5, const float* packed_t, const float* packed_T,
+    const int* sflag, const float* sp_T, float* out, int tx, int ty,
+    int bucket, int tiles_per_block, int sub_tiles, int n_sp, int int_prio,
+    void* stream) {
+  const int T = crowdsim::run_tiles(tiles_per_block, bucket);
+  if (T * bucket > 1024 || sub_tiles <= 0 || ty % sub_tiles || n_sp <= 0)
+    return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      int_prio ? crowdsim::launch<true, true>(zp5, packed_t, packed_T, sflag,
+                                              sp_T, out, tx, ty, bucket, T,
+                                              sub_tiles, n_sp, s)
+               : crowdsim::launch<false, true>(zp5, packed_t, packed_T, sflag,
+                                               sp_T, out, tx, ty, bucket, T,
+                                               sub_tiles, n_sp, s);
   return (int)e;
 }
 

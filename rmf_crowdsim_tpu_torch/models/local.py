@@ -6,7 +6,9 @@ batched function over the neighbor-candidate table::
     plan(params, state, nbr: NeighborSet, rec_vel[N,2], self_pref[N,2])
 
 The Zanlungo math here (``zanlungo_from_rows``) is the port's oracle, the
-``brute`` backend's force pass and the spill repair's own-row pass.
+``brute`` backend's force pass and the spill repair's own-row pass;
+``Zanlungo.plan_fused`` and ``plan_fused_dense`` run the ``grid_pallas``
+and ``grid_dense`` kernel paths.
 """
 
 from __future__ import annotations
@@ -262,6 +264,20 @@ class Zanlungo(LocalPlanner):
                 q_priority=state.priority[sl],
             ))
         return torch.cat(parts, 0)
+
+    def plan_fused_dense(self, params, dense_cfg, state: SimState, rec_vel,
+                         self_pref, key_sorted, int_prio: bool = False):
+        """Dense fused neighbor-search + force path (the grid_dense
+        backend; ops/zanlungo_dense.py).  ``key_sorted`` [N] int32: the
+        rows' tile keys in sorted order, fresh or carried.  Returns (vel
+        [N,2], max tile occupancy, dropped — column-capacity overflow)."""
+        from ..ops.zanlungo_dense import zanlungo_fused_dense
+
+        return zanlungo_fused_dense(
+            dense_cfg, params, state.position, state.velocity, self_pref,
+            state.preferred_vel, state.priority, state.eyesight, state.alive,
+            rec_vel, key_sorted, int_prio=int_prio,
+        )
 
     def plan_fused(self, params, bucket_cfg, state: SimState, rec_vel,
                    self_pref, use_pack_kernel: bool = False,

@@ -1,8 +1,8 @@
 """Exact repair of bucket overflow, and the spill-window kernel (K2).
 
 Counterpart of the spill half of ``rmf_crowdsim_tpu/ops/zanlungo_pallas.py``
-(``spill_patch``, ``_spill_groups``, ``_spill_own_rows`` and
-``_spill_groups_window_pallas``).
+(``spill_patch``, ``_spill_groups``, ``_spill_own_rows``, ``_spill_flags``
+and ``_spill_groups_window_pallas``).
 
 Agents beyond a tile's ``bucket`` slots ("spills") are missing from the
 packed plane: they get no force output and every query within eyesight of
@@ -16,6 +16,8 @@ Where the JAX package picks a spill-count tier and skips clean steps with
 over all ``spill_capacity`` slots (invalid slots return at once) and
 writes the affected rows with one masked ``index_put_`` into a buffer
 whose last row is a discard row: no host read of the spill count.
+``spill_flags`` marks the force kernel's sub-blocks that the fused-spill
+path (K1b, ``zanlungo_bucketed.zanlungo_fused``) must extend.
 """
 
 from __future__ import annotations
@@ -153,25 +155,29 @@ def _spill_own_rows(cfg: BucketConfig, zp, packed_t, sp: dict, sp_tcx,
 
 def spill_rows(cfg: BucketConfig, position, velocity, self_pref,
                pref_committed, priority, eyesight, alive, rec_vel,
-               bucket_pos, spill_capacity: int, tile_xy=None):
+               bucket_pos, spill_capacity: int, tile_xy=None, enabled=None):
     """The first ``spill_capacity`` spills (alive agents without a bucket
     slot), found without a host read.  Returns (compaction, sp — dict of
     [S, ...] f32 features pos, vel, prefc, spref, prio, eye, rec, id (the
     agent index, -1 on invalid slots) — , sp_tcx [S] int32, sp_tcy [S]
-    int32).  ``tile_xy``: carried tiles (tcx, tcy), else fresh ones."""
+    int32).  ``tile_xy``: carried tiles (tcx, tcy), else fresh ones.
+    ``enabled``: a [] bool on the device; where False every slot is
+    invalid (``count`` and ``n_over`` still count the spills)."""
     n = position.shape[0]
     f32 = torch.float32
-    if tile_xy is not None:
-        tcx, tcy = tile_xy
-    else:
-        tcx, tcy = tile_coords(cfg, position)
     c_sp = compact_indices(alive & (bucket_pos >= cfg.slots),
                            int(spill_capacity))
+    if enabled is not None:
+        c_sp = c_sp._replace(valid=c_sp.valid & enabled)
     valid = c_sp.valid
     sc = torch.clamp(c_sp.idx, 0, n - 1).long()
+    if tile_xy is not None:
+        tcx, tcy = tile_xy[0][sc], tile_xy[1][sc]
+    else:
+        tcx, tcy = tile_coords(cfg, position[sc])
     one = torch.ones((), dtype=torch.int32, device=position.device)
-    sp_tcx = torch.where(valid, tcx[sc].to(torch.int32), one).contiguous()
-    sp_tcy = torch.where(valid, tcy[sc].to(torch.int32), one).contiguous()
+    sp_tcx = torch.where(valid, tcx.to(torch.int32), one).contiguous()
+    sp_tcy = torch.where(valid, tcy.to(torch.int32), one).contiguous()
     sp = dict(
         pos=position[sc].to(f32),
         vel=velocity[sc].to(f32),
@@ -184,6 +190,35 @@ def spill_rows(cfg: BucketConfig, position, velocity, self_pref,
                        torch.full_like(c_sp.idx, -1)).to(f32),
     )
     return c_sp, sp, sp_tcx, sp_tcy
+
+
+def spill_flags(cfg: BucketConfig, sp_tcx, sp_tcy, spill_valid):
+    """Per-sub-block fused-spill flags [n_blocks] int32
+    (zanlungo_pallas.py:1993 ``_spill_flags``): the count of valid
+    spills whose tile lies within Chebyshev distance 1 (clamped into the
+    world) of one of the sub-block's tiles.  Sub-block ``(cx * n_strips
+    + cy // strip_tiles) * nsub + (cy % strip_tiles) // sub_tiles``, the
+    JAX kernel's indexing, which equals ``cx * (ty // sub_tiles) + cy //
+    sub_tiles``.  Because ``tile_size >= max_eyesight``, every query
+    within eyesight of a spill sits in a flagged sub-block."""
+    n_strips = cfg.ty // cfg.strip_tiles
+    nsub = cfg.strip_tiles // cfg.sub_tiles
+    n_blocks = cfg.tx * n_strips * nsub
+    dev = sp_tcx.device
+    d = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    cx = torch.clamp(sp_tcx[:, None, None] + d[None, :, None], 0, cfg.tx - 1)
+    cy = torch.clamp(sp_tcy[:, None, None] + d[None, None, :], 0, cfg.ty - 1)
+    blk = ((cx * n_strips + torch.div(cy, cfg.strip_tiles,
+                                      rounding_mode="floor")) * nsub
+           + torch.div(torch.remainder(cy, cfg.strip_tiles), cfg.sub_tiles,
+                       rounding_mode="floor"))
+    tgt = torch.where(spill_valid[:, None, None], blk,
+                      torch.full_like(blk, n_blocks))
+    flags = torch.zeros((n_blocks + 1,), dtype=torch.int32, device=dev)
+    flags.index_add_(0, tgt.reshape(-1).long(),
+                     torch.ones((tgt.numel(),), dtype=torch.int32,
+                                device=dev))
+    return flags[:n_blocks]
 
 
 def spill_candidates(sp: dict) -> torch.Tensor:
@@ -223,16 +258,20 @@ def _spill_groups(cfg: BucketConfig, zp, packed_t, packed_T, sp: dict,
 def spill_patch(cfg: BucketConfig, zp, position, velocity, self_pref,
                 pref_committed, priority, eyesight, alive, rec_vel,
                 packed_t, packed_T, bucket_pos, vel, spill_capacity: int,
-                int_prio: bool = False, tile_xy=None):
+                int_prio: bool = False, tile_xy=None, enabled=None):
     """EXACT repair of bucket-overflow truncation (zanlungo_pallas.py:1440).
     Returns (vel, unresolved) — ``unresolved`` counts spills beyond
     ``spill_capacity``.  ``tile_xy``: the carried tiles (tcx, tcy) of the
-    skin-deferred presort, else tiles come from fresh positions."""
+    skin-deferred presort, else tiles come from fresh positions.
+    ``enabled``: a [] bool on the device; where False no row is
+    rewritten (the fused-spill pass's storm branch, chosen without a
+    host read)."""
     n = position.shape[0]
     s_cap = int(spill_capacity)
     c_sp, sp, sp_tcx, sp_tcy = spill_rows(
         cfg, position, velocity, self_pref, pref_committed, priority,
-        eyesight, alive, rec_vel, bucket_pos, s_cap, tile_xy=tile_xy)
+        eyesight, alive, rec_vel, bucket_pos, s_cap, tile_xy=tile_xy,
+        enabled=enabled)
     spill_valid = c_sp.valid
     out, q_id, q_slots = _spill_groups(
         cfg, zp, packed_t, packed_T, sp, sp_tcx, sp_tcy, spill_valid,

@@ -1,8 +1,9 @@
-"""Bucketed supertile layout and the fused Zanlungo force kernel (K1).
+"""Bucketed supertile layout and the fused Zanlungo force kernels (K1,
+K1b).
 
 Counterpart of ``rmf_crowdsim_tpu/ops/zanlungo_pallas.py`` (the layout,
-``zanlungo_forces_bucketed`` and ``zanlungo_fused``; the spill half lives
-in ``ops/spill.py``).
+``zanlungo_forces_bucketed`` with and without ``spill_ext``, and
+``zanlungo_fused``; the spill half lives in ``ops/spill.py``).
 
 Layout, identical to the JAX package's slot for slot: the world is split
 into square supertiles of ``tile_size`` >= max eyesight, ``tx`` x ``ty``,
@@ -16,9 +17,11 @@ K1 computes, for every live slot, ``rec + F/m`` over every live candidate
 in the 3x3 tiles around the query's tile with ``d^2 < eye^2`` and another
 id — the same neighbor set as the TPU kernel's distance-masked strip
 windows — with ``t_i`` = min time-to-collision and ``F`` applied only
-where ``t_i`` is finite.  ``zanlungo_forces_bucketed`` launches the CUDA
-kernel (``csrc/zanlungo_bucketed.cu``) on CUDA tensors and runs the plain
-PyTorch version on CPU tensors.
+where ``t_i`` is finite.  K1b (``fused_spills``) adds up to 128 spills
+as a fourth candidate segment for the queries of flagged sub-blocks.
+``zanlungo_forces_bucketed`` and ``zanlungo_forces_bucketed_spill``
+launch the CUDA kernels (``csrc/zanlungo_bucketed.cu``) on CUDA tensors
+and run the plain PyTorch versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -466,30 +469,42 @@ def pair_mask(q: dict, c: dict) -> torch.Tensor:
 # Tiles of one column per K1 block (one thread per query slot).
 K1_TILES_PER_BLOCK = 8
 
+# Most spills K1b takes as candidates (the JAX package's S_K,
+# zanlungo_pallas.py:2162); more fall back to the spill patch.
+FUSED_SPILL_LANES = 128
+
+
+def _window_candidates(cfg: BucketConfig, packed_T, t):
+    """The candidate plane [NUM_CAND, T, 9b] of the 3x3 tiles around
+    tiles ``t`` [T]; slots outside the world read as id -1."""
+    b, tx, ty = cfg.bucket, cfg.tx, cfg.ty
+    d = torch.arange(-1, 2, device=t.device)
+    lane = torch.arange(b, device=t.device)
+    ncx = (t // ty)[:, None, None] + d[None, :, None]         # [T, 3, 1]
+    ncy = (t % ty)[:, None, None] + d[None, None, :]          # [T, 1, 3]
+    ok = (ncx >= 0) & (ncx < tx) & (ncy >= 0) & (ncy < ty)    # [T, 3, 3]
+    base = (ncx * ty + ncy) * b
+    cand = (base[..., None] + lane).reshape(t.shape[0], 9 * b)
+    ok = ok[..., None].expand(-1, 3, 3, b).reshape(t.shape[0], 9 * b)
+    cf = packed_T[:, torch.where(ok, cand, torch.zeros_like(cand))]
+    cf[ROW_ID] = torch.where(ok, cf[ROW_ID],
+                             torch.full_like(cf[ROW_ID], -1.0))
+    return cf
+
 
 def forces_bucketed_plain(cfg: BucketConfig, zp5, packed_t, packed_T, int_prio,
                   chunk_slots: int = 1 << 17):
     """Plain version of K1: every slot against the 3x3 tiles around its
     tile, in chunks of ``chunk_slots`` queries to bound the pair
     temporaries.  Empty slots get their rec row (zero for sentinels)."""
-    b, tx, ty = cfg.bucket, cfg.tx, cfg.ty
+    b = cfg.bucket
     dev = packed_t.device
     out = torch.empty((cfg.slots, 2), dtype=torch.float32, device=dev)
     chunk_tiles = max(1, chunk_slots // b)
-    d = torch.arange(-1, 2, device=dev)
-    lane = torch.arange(b, device=dev)
     for t0 in range(0, cfg.n_tiles, chunk_tiles):
         t1 = min(cfg.n_tiles, t0 + chunk_tiles)
-        t = torch.arange(t0, t1, device=dev)
-        ncx = (t // ty)[:, None, None] + d[None, :, None]     # [T, 3, 1]
-        ncy = (t % ty)[:, None, None] + d[None, None, :]      # [T, 1, 3]
-        ok = (ncx >= 0) & (ncx < tx) & (ncy >= 0) & (ncy < ty)  # [T, 3, 3]
-        base = (ncx * ty + ncy) * b
-        cand = (base[..., None] + lane).reshape(t1 - t0, 9 * b)
-        ok = ok[..., None].expand(-1, 3, 3, b).reshape(t1 - t0, 9 * b)
-        cf = packed_T[:, torch.where(ok, cand, torch.zeros_like(cand))]
-        cf[ROW_ID] = torch.where(ok, cf[ROW_ID],
-                                 torch.full_like(cf[ROW_ID], -1.0))
+        cf = _window_candidates(cfg, packed_T,
+                                torch.arange(t0, t1, device=dev))
         c = candidate_features(cf)                             # [T, 1, 9b]
         rows = packed_t[t0 * b:t1 * b].reshape(t1 - t0, b, NUM_F)
         q = query_features(rows)
@@ -531,6 +546,78 @@ def zanlungo_forces_bucketed(cfg: BucketConfig, zp5: torch.Tensor,
 zanlungo_forces_bucketed.launches = 0
 
 
+def slot_flags(cfg: BucketConfig, sflag: torch.Tensor) -> torch.Tensor:
+    """[slots] bool: the slot's sub-block carries a nonzero fused-spill
+    flag (sub-block ``tcx * (ty // sub_tiles) + tcy // sub_tiles``)."""
+    t = torch.arange(cfg.n_tiles, device=sflag.device)
+    blk = ((t // cfg.ty) * (cfg.ty // cfg.sub_tiles)
+           + (t % cfg.ty) // cfg.sub_tiles)
+    return torch.repeat_interleave(sflag[blk] > 0, cfg.bucket)
+
+
+def forces_bucketed_spill_plain(cfg: BucketConfig, zp5, packed_t, packed_T,
+                                sflag, sp_T, int_prio,
+                                chunk_slots: int = 1 << 14):
+    """Plain version of K1b: K1's plain version, then every slot of a
+    flagged sub-block again against its 3x3 window followed by the spill
+    plane's lanes.  Unflagged slots keep K1's output bit for bit."""
+    out = forces_bucketed_plain(cfg, zp5, packed_t, packed_T, int_prio)
+    s_idx = torch.nonzero(slot_flags(cfg, sflag)).squeeze(1)
+    n_sp = sp_T.shape[1]
+    for a in range(0, s_idx.shape[0], chunk_slots):
+        s = s_idx[a:a + chunk_slots]
+        cf = torch.cat([
+            _window_candidates(cfg, packed_T, s // cfg.bucket),
+            sp_T[:, None, :].expand(-1, s.shape[0], n_sp),
+        ], dim=2)                                   # [8, S, 9b + n_sp]
+        c = candidate_features(cf)                  # [S, 1, C]
+        q = query_features(packed_t[s][:, None, :])  # [S, 1, 1]
+        out[s] = pair_velocities(zp5, q, c, pair_mask(q, c),
+                                 int_prio)[:, 0, :]
+    return out
+
+
+def zanlungo_forces_bucketed_spill(cfg: BucketConfig, zp5: torch.Tensor,
+                                   packed_t: torch.Tensor,
+                                   packed_T: torch.Tensor,
+                                   sflag: torch.Tensor, sp_T: torch.Tensor,
+                                   int_prio: bool = False) -> torch.Tensor:
+    """K1b: K1 with the fused-spill segment (replaces
+    ``zanlungo_forces_bucketed(spill_ext=(sflag, sp_T))``,
+    zanlungo_pallas.py:1365-1437).  ``sflag`` [n_blocks] int32 from
+    ``spill.spill_flags``; ``sp_T`` [NUM_CAND, S] f32, id -1 on dead
+    lanes.  CPU tensors take the plain version; CUDA tensors launch the
+    spill variant of ``csrc/zanlungo_bucketed.cu``."""
+    if packed_t.device.type == "cpu":
+        return forces_bucketed_spill_plain(cfg, zp5, packed_t, packed_T,
+                                           sflag, sp_T, int_prio)
+    from ..utils import cuda_build
+
+    n_blocks = cfg.tx * (cfg.ty // cfg.sub_tiles)
+    n_sp = sp_T.shape[1]
+    cuda_build.check_tensors(
+        "zanlungo_forces_bucketed_spill",
+        zp5=(zp5, torch.float32, (5,)),
+        packed_t=(packed_t, torch.float32, (cfg.slots, NUM_F)),
+        packed_T=(packed_T, torch.float32, (NUM_CAND, cfg.slots)),
+        sflag=(sflag, torch.int32, (n_blocks,)),
+        sp_T=(sp_T, torch.float32, (NUM_CAND, n_sp)),
+    )
+    out = torch.empty((cfg.slots, 2), dtype=torch.float32,
+                      device=packed_t.device)
+    cuda_build.launch(
+        "crowdsim_zanlungo_bucketed_spill",
+        zp5, packed_t, packed_T, sflag, sp_T, out, cfg.tx, cfg.ty,
+        cfg.bucket, K1_TILES_PER_BLOCK, cfg.sub_tiles, n_sp,
+        int(bool(int_prio)),
+    )
+    zanlungo_forces_bucketed_spill.launches += 1
+    return out
+
+
+zanlungo_forces_bucketed_spill.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # The fused pass
 # ---------------------------------------------------------------------------
@@ -542,22 +629,28 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
                    presorted: bool = False, int_prio: bool = False,
                    binning=None, dual_row: bool = False,
                    fused_spills: bool = False):
-    """bucketize -> K1 -> unbucketize -> spill repair
-    (zanlungo_pallas.py:2106 with ``fused_spills=False``).  Returns
-    (vel [N, 2], max tile occupancy [] int32, dropped [] int32).
+    """bucketize -> K1 (or K1b) -> unbucketize -> spill repair
+    (zanlungo_pallas.py:2106).  Returns (vel [N, 2], max tile occupancy []
+    int32, dropped [] int32).
 
     ``binning``: (key, bpos, max_occ, n_bucket_over) carried by the
     skin-deferred presort.  ``dual_row`` changes only the TPU kernel's f32
     reduction order and is ignored.  The GPU pack has no streaming window,
     so no agent can lose its slot to pack overflow and the JAX package's
-    ``_fix_pack_dropped`` branch has nothing to fix."""
-    if fused_spills:
-        raise NotImplementedError(
-            "fused_spills=True needs the force kernel's spill_ext variant "
-            "(K1b, zanlungo_pallas.py:1403-1437), which is not ported yet"
-        )
-    from .spill import spill_patch
+    ``_fix_pack_dropped`` branch has nothing to fix.
 
+    ``fused_spills`` (with ``spill_capacity > 0`` on a >= 5x5-tile
+    world): the first ``min(128, spill_capacity)`` spills ride K1b as a
+    fourth candidate segment on flagged sub-blocks, and only their own
+    rows run the oracle-math pass.  Where the JAX package picks fused,
+    storm or nothing with ``lax.cond``, the port runs both branches
+    masked on the device: the own rows land only if the spills ``fit``,
+    and ``spill_patch`` rewrites rows only if they do not (a storm), so
+    the step gains no host read."""
+    from .spill import (_spill_own_rows, spill_candidates, spill_flags,
+                        spill_patch, spill_rows)
+
+    n = position.shape[0]
     dtype = position.dtype
     tile_xy = None
     bin3 = None
@@ -571,19 +664,49 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
         eyesight, rec_vel, alive, use_pack_kernel=use_pack_kernel,
         presorted=presorted, binning=bin3,
     )
-    out = zanlungo_forces_bucketed(cfg, zparams5(zp), packed_t, packed_T,
-                                   int_prio=int_prio)
+    zp5 = zparams5(zp)
+    use_fsp = bool(spill_capacity > 0 and fused_spills
+                   and cfg.tx >= 5 and cfg.ty >= 5)
+    if use_fsp:
+        # Fused-spill discovery (zanlungo_pallas.py:2158-2205): the first
+        # min(128, spill_capacity) spills are K1b's spill plane.
+        c_sp, sp, sp_tcx, sp_tcy = spill_rows(
+            cfg, position, velocity, self_pref, pref_committed, priority,
+            eyesight, alive, rec_vel, bucket_pos,
+            min(FUSED_SPILL_LANES, int(spill_capacity)), tile_xy=tile_xy)
+        out = zanlungo_forces_bucketed_spill(
+            cfg, zp5, packed_t, packed_T,
+            spill_flags(cfg, sp_tcx, sp_tcy, c_sp.valid),
+            spill_candidates(sp), int_prio=int_prio)
+    else:
+        out = zanlungo_forces_bucketed(cfg, zp5, packed_t, packed_T,
+                                       int_prio=int_prio)
     ok = (bucket_pos < cfg.slots) & alive
     vel = out[torch.clamp(bucket_pos, 0, cfg.slots - 1).long()].to(dtype)
     vel = torch.where(ok[:, None], vel, rec_vel)
     if spill_capacity > 0:
         n_bucket_over = (alive & (bucket_pos >= cfg.slots)).sum(
             dtype=torch.int32)
+        enabled = None
+        if use_fsp:
+            # Fused branch: the spills' own rows (affected packed rows
+            # were fixed in K1b), written only if every spill fit; else
+            # they go to the discard row n and the storm branch, the full
+            # patch, rewrites every affected row.
+            fits = c_sp.n_over == 0
+            own = _spill_own_rows(cfg, zp, packed_t, sp, sp_tcx, sp_tcy,
+                                  c_sp.valid)[:, 0, :]
+            tgt = torch.where(c_sp.valid & fits, c_sp.idx,
+                              torch.full_like(c_sp.idx, n)).long()
+            buf = torch.cat([vel, vel.new_zeros((1, 2))], dim=0)
+            buf.index_put_((tgt,), own.to(dtype))
+            vel = buf[:n]
+            enabled = ~fits
         vel, unresolved = spill_patch(
             cfg, zp, position, velocity, self_pref, pref_committed,
             priority, eyesight, alive, rec_vel, packed_t, packed_T,
             bucket_pos, vel, spill_capacity, int_prio=int_prio,
-            tile_xy=tile_xy,
+            tile_xy=tile_xy, enabled=enabled,
         )
         pack_over = dropped - n_bucket_over
         dropped = (unresolved + pack_over).to(torch.int32)

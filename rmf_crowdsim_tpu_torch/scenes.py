@@ -22,10 +22,13 @@ HOTSPOT_AGENTS = 48
 
 
 def bench_config(n_agents: int, dtype: str = "float32",
-                 backend: str = "grid_pallas") -> SimConfig:
+                 backend: str = "grid_pallas",
+                 fused_spills: bool = False) -> SimConfig:
     """bench.py:31-75: tiles of 5.3 m with buckets of 32, the pack
     kernel, ``spill_capacity = max(128, n // 4096)``, and on the kernel
-    backends presort, integer priorities and ``dual_row``."""
+    backends presort, integer priorities and ``dual_row``.
+    ``fused_spills``: the SimConfig field of that name (bench.py leaves
+    it at its default, False)."""
     area_per_agent = 1.6
     side = float(np.ceil(np.sqrt(n_agents * area_per_agent)))
     cell = 2.0
@@ -47,6 +50,7 @@ def bench_config(n_agents: int, dtype: str = "float32",
         presort=kernel_backend,
         integer_priorities=kernel_backend,
         dual_row=kernel_backend,
+        fused_spills=fused_spills,
         dtype=dtype,
     )
 
@@ -71,10 +75,12 @@ def bench_positions(n_agents: int, side: float, hotspot: bool = False,
 
 def build_bench(n_agents: int, dtype: str = "float32",
                 backend: str = "grid_pallas", device="cpu",
-                hotspot: bool = False, hotspot_origin=(10.0, 10.0)):
+                hotspot: bool = False, hotspot_origin=(10.0, 10.0),
+                fused_spills: bool = False):
     """The bench scene at ``n_agents`` on ``device``: returns (rollout,
     params, state) like bench.py's ``build_bench``."""
-    config = bench_config(n_agents, dtype=dtype, backend=backend)
+    config = bench_config(n_agents, dtype=dtype, backend=backend,
+                          fused_spills=fused_spills)
     hl = ParityVelocity((1.0, 0.0))
     lp = Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
                   force_distance=1.0, agent_mass=2.0, agent_radius=0.25,

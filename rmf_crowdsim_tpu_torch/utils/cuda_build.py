@@ -41,7 +41,9 @@ NVCC_FLAGS = (
 SIGNATURES = {
     "crowdsim_pack_rows": "ppiipp",
     "crowdsim_zanlungo_bucketed": "ppppiiiii",
+    "crowdsim_zanlungo_bucketed_spill": "ppppppiiiiiii",
     "crowdsim_spill_window": "pppppppiiiii",
+    "crowdsim_zanlungo_dense": "ppppiiiii",
 }
 
 

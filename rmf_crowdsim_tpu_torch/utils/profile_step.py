@@ -1,8 +1,11 @@
 """Where a step of the port's bench rollout spends its time, on one GPU.
 
     python -m rmf_crowdsim_tpu_torch.utils.profile_step --n 1000000 100000
+    python -m rmf_crowdsim_tpu_torch.utils.profile_step --backend grid_dense
+    python -m rmf_crowdsim_tpu_torch.utils.profile_step --fused-spills
 
-For each agent count: the bench scene (``scenes.build_bench``) runs a
+For each agent count: the bench scene (``scenes.build_bench``, on
+``--backend``, with ``--fused-spills`` setting that SimConfig field) runs a
 warm-up, then ``--steps`` steps timed on the host clock around
 ``torch.cuda.synchronize()``; after all timings, each count runs the
 same number of steps under ``torch.profiler``.  Printed per count:
@@ -35,17 +38,19 @@ def card_line() -> str:
     ).stdout.strip()
 
 
-def _bench(n: int):
-    """The bench scene at ``n`` on the card, after a 3-step warm-up."""
-    rollout, params, st = scenes.build_bench(n, device=torch.device("cuda"))
+def _bench(n: int, **scene):
+    """The bench scene at ``n`` on the card, after a 3-step warm-up;
+    ``scene``: ``backend`` and ``fused_spills`` for ``build_bench``."""
+    rollout, params, st = scenes.build_bench(n, device=torch.device("cuda"),
+                                             **scene)
     st, _ = rollout(params, st, DT, 3)
     torch.cuda.synchronize()
     return rollout, params, st
 
 
-def time_steps(n: int, steps: int) -> dict:
+def time_steps(n: int, steps: int, **scene) -> dict:
     """ms/step on the host clock around synchronized steps, no profiler."""
-    rollout, params, st = _bench(n)
+    rollout, params, st = _bench(n, **scene)
     t0 = time.perf_counter()
     st, counters = rollout(params, st, DT, steps)
     torch.cuda.synchronize()
@@ -54,9 +59,9 @@ def time_steps(n: int, steps: int) -> dict:
                 truncated=int(counters.neighbor_truncated.max()))
 
 
-def profile(n: int, steps: int, top: int) -> dict:
+def profile(n: int, steps: int, top: int, **scene) -> dict:
     """Device time per step by kernel, from ``torch.profiler``."""
-    rollout, params, st = _bench(n)
+    rollout, params, st = _bench(n, **scene)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -81,15 +86,20 @@ def main() -> None:
     ap.add_argument("--n", type=int, nargs="+", default=[1_000_000])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--backend", default="grid_pallas",
+                    choices=("grid_pallas", "grid_dense"))
+    ap.add_argument("--fused-spills", action="store_true",
+                    help="SimConfig.fused_spills (grid_pallas: kernel K1b)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_step needs a CUDA device")
-    print(f"card: {card_line()}")
+    scene = dict(backend=args.backend, fused_spills=args.fused_spills)
+    print(f"card: {card_line()}; {scene}")
     # Every timing runs before the first profiler session: the profiler's
     # tracing can stay attached and slow later launches.
-    timed = {n: time_steps(n, args.steps) for n in args.n}
+    timed = {n: time_steps(n, args.steps, **scene) for n in args.n}
     for n in args.n:
-        r = {**timed[n], **profile(n, args.steps, args.top)}
+        r = {**timed[n], **profile(n, args.steps, args.top, **scene)}
         print(f"n={n}: {r['wall_ms']:.3f} ms/step = {r['steps_per_s']:.2f} "
               f"steps/s; device busy {r['device_busy_ms']:.3f} ms/step, "
               f"idle share {1 - r['device_busy_ms'] / r['wall_ms']:.3f}; "

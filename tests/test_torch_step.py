@@ -27,28 +27,31 @@ from rmf_crowdsim_tpu_torch.core.state import STATE_TENSOR_FIELDS
 from rmf_crowdsim_tpu_torch.core.step import SimParams, build_rollout
 from rmf_crowdsim_tpu_torch.ops import pack, spill
 from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as tzb
+from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as tzd
 from rmf_crowdsim_tpu_torch.utils import convert, cuda_build
 
 N = 1024
 STEPS = 3
 DT = 1.0 / 60.0
 HOTSPOT = (6.0, 6.0)   # inside tile (5, 5) of the 1,024-agent world
-KERNELS = (pack.pack_rows, tzb.zanlungo_forces_bucketed, spill.spill_window)
+KERNELS = (pack.pack_rows, tzb.zanlungo_forces_bucketed, spill.spill_window,
+           tzb.zanlungo_forces_bucketed_spill, tzd.zanlungo_forces_dense)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def jax_config(backend):
-    """The port's bench config, read field for field into the JAX
-    package's SimConfig (one scene spec, two packages)."""
-    c = scenes.bench_config(N, backend=backend)
+def jax_config(backend, **kw):
+    """The port's bench config (``kw``: more ``bench_config`` options),
+    read field for field into the JAX package's SimConfig (one scene
+    spec, two packages)."""
+    c = scenes.bench_config(N, backend=backend, **kw)
     fields = {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}
     fields["grid"] = J.GridConfig(**dataclasses.asdict(c.grid))
     fields["pallas_interpret"] = True
     return J.SimConfig(**fields)
 
 
-def jax_bench(backend):
-    config = jax_config(backend)
+def jax_bench(backend, **kw):
+    config = jax_config(backend, **kw)
     hl = J.ParityVelocity((1.0, 0.0))
     lp = J.Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
                     force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
@@ -75,6 +78,18 @@ def by_uid(position, uid):
     return np.asarray(position)[np.argsort(np.asarray(uid))]
 
 
+def port_inputs(params, state):
+    """The JAX bench's state and parameters, carried across as numpy."""
+    t_state = convert.state_from_numpy(jax.tree.map(np.asarray, state))
+    t_params = SimParams(
+        hl=(convert.hl_params_from_numpy(
+            jax.tree.map(np.asarray, params.hl[0])),),
+        lp=(convert.zanlungo_params_from_numpy(
+            jax.tree.map(np.asarray, params.lp[0])),),
+    )
+    return t_params, t_state
+
+
 @pytest.fixture(scope="module")
 def runs():
     out = {}
@@ -85,15 +100,8 @@ def runs():
         out["jax_" + backend] = (by_uid(st.position, st.uid),
                                  jax.tree.map(np.asarray, c))
 
-        # The port starts from the JAX state and parameters, carried
-        # across as numpy.
-        t_state = convert.state_from_numpy(jax.tree.map(np.asarray, state))
-        t_params = SimParams(
-            hl=(convert.hl_params_from_numpy(
-                jax.tree.map(np.asarray, params.hl[0])),),
-            lp=(convert.zanlungo_params_from_numpy(
-                jax.tree.map(np.asarray, params.lp[0])),),
-        )
+        # The port starts from the JAX state and parameters.
+        t_params, t_state = port_inputs(params, state)
         t_config = scenes.bench_config(N, backend=backend)
         t_rollout = build_rollout(
             t_config, [ParityVelocity((1.0, 0.0))],
@@ -136,8 +144,8 @@ def test_rollout_counters_match_jax(runs, backend):
 
 def test_launch_counters_stay_zero_on_cpu(runs):
     """CPU tensors take the kernels' plain versions and launch nothing."""
-    assert runs["launches_grid_pallas"] == [0, 0, 0]
-    assert runs["launches_brute"] == [0, 0, 0]
+    assert runs["launches_grid_pallas"] == [0] * len(KERNELS)
+    assert runs["launches_brute"] == [0] * len(KERNELS)
 
 
 def test_converter_round_trip():
@@ -195,22 +203,22 @@ def test_skin_reuses_the_carried_binning():
 
 
 def test_unported_paths_raise():
+    """What the port does not run yet raises: the ``grid`` and ``custom``
+    backends, SourceSink tables and per-uid event streams."""
     from rmf_crowdsim_tpu_torch.core.config import SimConfig
     from rmf_crowdsim_tpu_torch.core.step import build_step
 
-    grid = scenes.bench_config(N, backend="grid")
-    with pytest.raises(NotImplementedError):
-        build_step(grid, [], [])
-    cfg = dataclasses.replace(scenes.bench_config(N), fused_spills=True)
-    rollout, params, state = scenes.build_bench(N)
-    rollout = build_rollout(cfg, [ParityVelocity((1.0, 0.0))],
-                            [Zanlungo(1.0, 1.0, 0.0, 1.0, 2.0, 0.25)])
-    with pytest.raises(NotImplementedError, match="K1b"):
-        rollout(params, state, DT, 1)
-    with pytest.raises(NotImplementedError):
+    planners = ([ParityVelocity((1.0, 0.0))],
+                [Zanlungo(1.0, 1.0, 0.0, 1.0, 2.0, 0.25)])
+    for backend in ("grid", "custom"):
+        with pytest.raises(NotImplementedError, match=backend):
+            build_step(scenes.bench_config(N, backend=backend), *planners)
+    with pytest.raises(NotImplementedError, match="SourceSink"):
         build_step(SimConfig(capacity=4), [], [])(
             SimParams(hl=(), lp=(), sources=object()),
             make_state(SimConfig(capacity=4)), DT)
+    with pytest.raises(NotImplementedError, match="event streams"):
+        build_rollout(scenes.bench_config(N), *planners, event_capacity=16)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_for_launch():
@@ -229,6 +237,7 @@ def test_import_leaves_jax_out():
         "import rmf_crowdsim_tpu_torch.scenes\n"
         "import rmf_crowdsim_tpu_torch.ops.pack\n"
         "import rmf_crowdsim_tpu_torch.ops.spill\n"
+        "import rmf_crowdsim_tpu_torch.ops.zanlungo_dense\n"
         "import rmf_crowdsim_tpu_torch.utils.convert\n"
         "import rmf_crowdsim_tpu_torch.utils.cuda_build\n"
         "import rmf_crowdsim_tpu_torch.utils.profile_step\n"
