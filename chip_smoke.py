@@ -12,8 +12,14 @@ repository beside it).  Phases, each printing its own line:
    bitwise, K1 (force), K2 (spill window), K1b (force with the fused
    spill segment) and K4 (the dense ``grid_dense`` force kernel) to
    rtol = atol = 2e-4 on live rows with integer priorities on and off;
-   times of both; then the 1M fused-spill pass against the spill-patch
-   pass on the same state, to 2e-4;
+   times of both, each kernel's bound (``utils/roofline.py``: the bytes
+   and f32 operations that this run's inputs need) and its share of it;
+   K1b bitwise K1 on unflagged slots; the 1M fused-spill pass against
+   the spill-patch pass on the same state, exactly; then K1 and K1b
+   against their plain versions where queries overflow the neighbour
+   list (the 1M scene one step in, while the hotspot is packed, and a
+   4,096-agent scene with the hotspot on a tile corner), each kernel's
+   overflow count > 0 over them, so the re-walk runs on the card;
 4. gates (the port of bench.py's ``compiled_parity_check``): the
    4,096-agent bench scene with the 48-agent hotspot, 5 steps at
    dt = 1/60, against ``brute`` by uid to 2e-4 with zero truncation:
@@ -26,8 +32,9 @@ repository beside it).  Phases, each printing its own line:
    just after; zero truncation, finite state, no agent lost, and every
    kernel of the path launched; then its host syncs per step, counted.
 
-Then one JSON line of per-kernel results, the card's line, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure raises.
+Then one JSON line of per-kernel results (``library_ms`` is null for all
+five: no single PyTorch call computes any of them), the card's line, and
+as the last line ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -144,7 +151,12 @@ def main() -> int:
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
     from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
     from rmf_crowdsim_tpu_torch.utils import cuda_build
+    from rmf_crowdsim_tpu_torch.utils import roofline as rl
     from rmf_crowdsim_tpu_torch.utils.profile_step import card_line
+
+    def bound_text(b, ms):
+        return (f"bound {b.ms:.4f} ms ({b.bound_by}: {b.bytes} B, {b.ops} "
+                f"f32 ops), {100 * b.ms / ms:.1f}% of bound")
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -161,23 +173,8 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
 
     # ---- phase 3: kernels vs plain versions at the 1M bench shapes ------
-    config = scenes.bench_config(N_MAIN)
-    bcfg = zb.BucketConfig.create(
-        config.grid.width, config.grid.height, config.grid.offset,
-        config.max_eyesight, bucket=config.bucket_capacity,
-        strip_tiles=config.strip_tiles, sub_tiles=config.sub_tiles,
-        tile_size=config.bucket_tile_size)
-    rollout, params, st = scenes.build_bench(N_MAIN, device=dev,
-                                             hotspot=True)
-    # Two steps first, so agents move and pair forces are live.
-    st, _ = rollout(params, st, DT, 2)
-    st, _, _ = payload_sort_by_key(
-        st, zb.tile_key(bcfg, st.position, st.alive),
-        torch.zeros_like(st.alive))
-    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
-    feat_t, bpos, bucket_pos, _, _ = zb.feature_rows(
-        bcfg, st.position, st.velocity, st.preferred_vel, rec, st.priority,
-        st.eyesight, rec, st.alive, use_pack_kernel=True, presorted=True)
+    config, bcfg, params, st, rec, feat_t, bpos, bucket_pos = (
+        scenes.bench_bucketed(N_MAIN, device=dev))
     results = {}
 
     packed_t, packed_T, _ = pack.pack_rows(feat_t, bpos, bcfg.slots)
@@ -190,17 +187,20 @@ def main() -> int:
     ms, pms = _timed_pair(
         torch, lambda: pack.pack_rows(feat_t, bpos, bcfg.slots),
         lambda: pack.pack_rows_plain(feat_t, bpos, bcfg.slots), 10)
-    results["pack_rows"] = dict(err=err3, ms=ms, plain_ms=pms)
+    b3 = rl.Bound(rl.k3_bytes(N_MAIN, bcfg.slots))
+    results["pack_rows"] = dict(err=err3, ms=ms, plain_ms=pms, bound=b3)
     print(f"phase 3 K3 pack_rows: {N_MAIN} rows -> {bcfg.slots} slots, "
-          f"bitwise equal; kernel {ms:.3f} ms, plain {pms:.3f} ms",
-          flush=True)
+          f"bitwise equal; kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+          f"{bound_text(b3, ms)}", flush=True)
 
     zp5 = zb.zparams5(params.lp[0])
     live = packed_T[zb.ROW_ID] >= 0
+    n_live = int(live.sum())
     err1, t1 = 0.0, []
     for int_prio in (True, False):
+        over = torch.zeros((1,), dtype=torch.int32, device=dev)
         out_k = zb.zanlungo_forces_bucketed(bcfg, zp5, packed_t, packed_T,
-                                            int_prio=int_prio)
+                                            int_prio=int_prio, overflow=over)
         out_p = zb.forces_bucketed_plain(bcfg, zp5, packed_t, packed_T,
                                          int_prio)
         n_forced = int(((out_p - packed_t[:, 8:10]).abs().sum(1)
@@ -214,13 +214,16 @@ def main() -> int:
                 bcfg, zp5, packed_t, packed_T, int_prio=int_prio),
             lambda: zb.forces_bucketed_plain(bcfg, zp5, packed_t,
                                              packed_T, int_prio), 3)
-        t1.append((ms, pms))
+        b1 = rl.Bound(rl.k1_bytes(bcfg, n_live),
+                      rl.k1_work(bcfg, zp5, packed_t, packed_T).ops(int_prio))
+        t1.append((ms, pms, b1))
         print(f"phase 3 K1 zanlungo_bucketed int_prio={int_prio}: "
-              f"{int(live.sum())} live slots ({n_forced} with forces) of "
-              f"{bcfg.slots}; max abs err {e:.3g} (tol {TOL}); kernel "
-              f"{ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+              f"{n_live} live slots ({n_forced} with forces) of "
+              f"{bcfg.slots}; {int(over.item())} list overflows; max abs "
+              f"err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, {bound_text(b1, ms)}", flush=True)
     results["zanlungo_bucketed"] = dict(err=err1, ms=t1[0][0],
-                                        plain_ms=t1[0][1])
+                                        plain_ms=t1[0][1], bound=t1[0][2])
 
     c_sp, sp, sp_tcx, sp_tcy = spill.spill_rows(
         bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
@@ -248,13 +251,17 @@ def main() -> int:
             lambda: spill.spill_window_plain(
                 bcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
                 int_prio), 10)
-        t2.append((ms, pms))
+        b2 = rl.Bound(rl.k2_bytes(bcfg, zp5, sp_T, sp_tcx, sp_tcy),
+                      rl.k2_work(bcfg, zp5, packed_t, packed_T, sp_T,
+                                 sp_tcx, sp_tcy).ops(int_prio))
+        t2.append((ms, pms, b2))
         print(f"phase 3 K2 spill_window int_prio={int_prio}: {n_spill} "
               f"spills in {config.spill_capacity} slots, "
               f"{int(q_live.sum())} live window queries; max abs err "
               f"{e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms", flush=True)
-    results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1])
+              f"{pms:.3f} ms, {bound_text(b2, ms)}", flush=True)
+    results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1],
+                                   bound=t2[0][2])
 
     # K1b: the fused-spill discovery of zanlungo_fused on this state.
     c_f, sp_f, f_tcx, f_tcy = spill.spill_rows(
@@ -269,8 +276,10 @@ def main() -> int:
     flagged = zb.slot_flags(bcfg, sflag)
     err1b, t1b = 0.0, []
     for int_prio in (True, False):
+        over = torch.zeros((1,), dtype=torch.int32, device=dev)
         out_k = zb.zanlungo_forces_bucketed_spill(
-            bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio=int_prio)
+            bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio=int_prio,
+            overflow=over)
         out_p = zb.forces_bucketed_spill_plain(
             bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio)
         out_1 = zb.zanlungo_forces_bucketed(bcfg, zp5, packed_t, packed_T,
@@ -280,6 +289,7 @@ def main() -> int:
         if not torch.equal(out_k[~flagged], out_1[~flagged]):
             raise AssertionError("K1b differs from K1 on unflagged slots")
         n_changed = int(((out_k - out_1).abs().sum(1) > 0).sum())
+        n_over = int(over.item())
         e = (out_k[live] - out_p[live]).abs().max().item()
         err1b = max(err1b, e)
         ms, pms = _timed_pair(
@@ -288,14 +298,19 @@ def main() -> int:
                 int_prio=int_prio),
             lambda: zb.forces_bucketed_spill_plain(
                 bcfg, zp5, packed_t, packed_T, sflag, sp_fT, int_prio), 3)
-        t1b.append((ms, pms))
+        b1b = rl.Bound(rl.k1b_bytes(bcfg, n_live, sp_fT),
+                       rl.k1b_work(bcfg, zp5, packed_t, packed_T, sflag,
+                                   sp_fT).ops(int_prio))
+        t1b.append((ms, pms, b1b))
         print(f"phase 3 K1b zanlungo_bucketed_spill int_prio={int_prio}: "
               f"{int(c_f.count)} spills, {n_flagged} flagged sub-blocks "
               f"({int(flagged.sum())} slots, {n_changed} changed vs K1, "
-              f"the rest bitwise K1); max abs err {e:.3g} (tol {TOL}); "
-              f"kernel {ms:.3f} ms, plain {pms:.3f} ms", flush=True)
+              f"the rest bitwise K1); {n_over} list overflows; "
+              f"max abs err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
+              f"{pms:.3f} ms, {bound_text(b1b, ms)}", flush=True)
     results["zanlungo_bucketed_spill"] = dict(err=err1b, ms=t1b[0][0],
-                                              plain_ms=t1b[0][1])
+                                              plain_ms=t1b[0][1],
+                                              bound=t1b[0][2])
 
     # The whole fused pass against the spill-patch pass, same state.
     passes = {}
@@ -312,11 +327,71 @@ def main() -> int:
     torch.testing.assert_close(passes[True][a], passes[False][a], rtol=TOL,
                                atol=TOL)
     e = (passes[True][a] - passes[False][a]).abs().max().item()
+    if not torch.equal(passes[True][a], passes[False][a]):
+        raise AssertionError("the fused pass differs from the spill-patch "
+                             "pass")
     print(f"phase 3 fused pass: {N_MAIN} agents, fused_spills=True vs the "
-          f"spill patch: max abs err {e:.3g} (tol {TOL}); dropped 0",
+          f"spill patch: equal (max abs err {e:.3g}); dropped 0",
           flush=True)
-    del (rollout, params, st, feat_t, packed_t, packed_T, plain_t, plain_T,
+    del (params, st, feat_t, packed_t, packed_T, plain_t, plain_T,
          out_k, out_p, out_1, passes)
+    torch.cuda.empty_cache()
+
+    # The re-walk of queries with more than K1_LIST_CAP hits, on states
+    # that have them: the 1M scene one step in, while its hotspot is still
+    # packed (K1b's spill segment adds the spilled part of it), and a
+    # 4,096-agent scene whose hotspot straddles a tile corner, so its four
+    # buckets hold all of it and K1 alone sees ~47 neighbours a query.
+    gcfg = scenes.bench_bucket_config(N_GATE)
+    corner = (gcfg.offset[0] + gcfg.tile_size * (gcfg.tx // 2) - 1.0,
+              gcfg.offset[1] + gcfg.tile_size * (gcfg.ty // 2) - 1.0)
+    rewalked = {"K1": 0, "K1b": 0}
+    for label, n, scene in (
+            (f"{N_MAIN}-agent hotspot, 1 step", N_MAIN, {}),
+            (f"{N_GATE}-agent corner hotspot ({corner[0]:.2f}, "
+             f"{corner[1]:.2f}),"
+             " 1 step", N_GATE, dict(hotspot_origin=corner))):
+        wconfig, wcfg, wparams, wst, wrec, wfeat, wbpos, wbucket = (
+            scenes.bench_bucketed(n, device=dev, steps=1, **scene))
+        w_t, w_T, _ = pack.pack_rows(wfeat, wbpos, wcfg.slots)
+        w_live = w_T[zb.ROW_ID] >= 0
+        wzp5 = zb.zparams5(wparams.lp[0])
+        c_w, sp_w, w_tcx, w_tcy = spill.spill_rows(
+            wcfg, wst.position, wst.velocity, wrec, wst.preferred_vel,
+            wst.priority, wst.eyesight, wst.alive, wrec, wbucket,
+            min(zb.FUSED_SPILL_LANES, wconfig.spill_capacity))
+        w_flag = spill.spill_flags(wcfg, w_tcx, w_tcy, c_w.valid)
+        w_spT = spill.spill_candidates(sp_w)
+        for int_prio in (True, False):
+            counts = {}
+            for name, kernel, plain in (
+                    ("K1", lambda o: zb.zanlungo_forces_bucketed(
+                        wcfg, wzp5, w_t, w_T, int_prio=int_prio, overflow=o),
+                     lambda: zb.forces_bucketed_plain(wcfg, wzp5, w_t, w_T,
+                                                      int_prio)),
+                    ("K1b", lambda o: zb.zanlungo_forces_bucketed_spill(
+                        wcfg, wzp5, w_t, w_T, w_flag, w_spT,
+                        int_prio=int_prio, overflow=o),
+                     lambda: zb.forces_bucketed_spill_plain(
+                         wcfg, wzp5, w_t, w_T, w_flag, w_spT, int_prio))):
+                over = torch.zeros((1,), dtype=torch.int32, device=dev)
+                out_k = kernel(over)
+                out_p = plain()
+                torch.testing.assert_close(out_k[w_live], out_p[w_live],
+                                           rtol=TOL, atol=TOL)
+                e = (out_k[w_live] - out_p[w_live]).abs().max().item()
+                counts[name] = (int(over.item()), e)
+                rewalked[name] += counts[name][0]
+            print(f"phase 3 re-walk, {label}, int_prio={int_prio}: "
+                  f"{int(c_w.count)} spills; list overflows (re-walked "
+                  f"queries) K1 {counts['K1'][0]}, K1b {counts['K1b'][0]}; "
+                  f"max abs err K1 {counts['K1'][1]:.3g}, K1b "
+                  f"{counts['K1b'][1]:.3g} (tol {TOL})", flush=True)
+        del wparams, wst, wrec, wfeat, w_t, w_T, out_k, out_p
+    for name, count in rewalked.items():
+        if count == 0:
+            raise AssertionError(f"{name}: no query overflowed its "
+                                 f"neighbour list; the re-walk never ran")
     torch.cuda.empty_cache()
 
     # K4 at the 1M bench grid_dense shapes.
@@ -354,15 +429,17 @@ def main() -> int:
                 dcfg, zp5, feat, tile_start, int_prio=int_prio),
             lambda: zd.forces_dense_plain(dcfg, zp5, feat, tile_start,
                                           int_prio), 3)
-        t4.append((ms, pms))
+        b4 = rl.Bound(rl.k4_bytes(dcfg, feat),
+                      rl.k4_work(dcfg, zp5, feat, tile_start).ops(int_prio))
+        t4.append((ms, pms, b4))
         print(f"phase 3 K4 zanlungo_dense int_prio={int_prio}: "
               f"{rows.shape[0]} live rows ({n_forced} with forces) in "
               f"{dcfg.slots} padded rows ({dcfg.tx} columns of "
               f"{dcfg.col_cap}), max tile occupancy {int(occ)}; max abs "
               f"err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms", flush=True)
+              f"{pms:.3f} ms, {bound_text(b4, ms)}", flush=True)
     results["zanlungo_dense"] = dict(err=err4, ms=t4[0][0],
-                                     plain_ms=t4[0][1])
+                                     plain_ms=t4[0][1], bound=t4[0][2])
     del rollout, params, st, feat, out_k, out_p
     torch.cuda.empty_cache()
 
@@ -445,7 +522,10 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
          "max_abs_err": results[name]["err"], "ms": results[name]["ms"],
-         "plain_ms": results[name]["plain_ms"]}
+         "plain_ms": results[name]["plain_ms"],
+         "bound_ms": results[name]["bound"].ms,
+         "bound_by": results[name]["bound"].bound_by,
+         "library_ms": None}
         for name in source
     ]}))
     print(f"card: {card}")

@@ -65,8 +65,9 @@ STATE_TENSOR_FIELDS = tuple(
 
 
 def make_state(config: SimConfig, seed: int = 0,
-               device: torch.device | str = "cpu") -> SimState:
-    """Create an empty simulation state (0 live agents) on ``device``."""
+               device: torch.device | str = "cuda") -> SimState:
+    """Create an empty simulation state (0 live agents) on ``device``
+    (the card unless the caller names another device)."""
     n = config.capacity
     f = config.tdtype
     i32 = torch.int32

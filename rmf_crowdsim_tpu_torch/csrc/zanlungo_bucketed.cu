@@ -17,246 +17,421 @@
 // the spill plane sp_T [NUM_CAND, n_sp] as candidates, in both passes,
 // after the window; other queries run K1's exact instruction sequence.
 //
-// Design.  One block per run of T tiles of one tile column, one thread
-// per query slot (T * bucket threads).  The block stages the 8 candidate
-// feature rows of columns tcx-1..tcx+1 over tiles tcy0-1..tcy0+T in shared
-// memory (3 * (T+2) * bucket * 32 bytes, ~30 KB at T = 8, bucket 32),
-// clipped at the world's edges (clipped slots read as sentinels, never as
-// the neighbouring column).  Each thread then makes two passes over its
-// 9 * bucket candidates, read from shared memory as warp-wide broadcasts:
-// the min TTC, then the force sum.  A block whose tiles hold no live
-// agent writes rec and returns before staging.  K1b stages the spill plane
-// (4 KB at n_sp = 128) behind the window, only in blocks that hold a
-// flagged live query.
+// Bound on the H100: operations, barely.  At the 1M bench scene (bucket
+// 32, 239 x 240 tiles, 999,938 of 1,835,520 slots live) the kernel's
+// f32 operations (a mask test per live pair of a 3x3 window, the pair
+// math on the hits) take 0.033 ms at 67 TFLOP/s; the bytes its inputs
+// need (each live slot's 11 query and 8 candidate features and its
+// output, each empty slot's id, rec and output) take 0.030 ms at
+// 3.35 TB/s.  utils/roofline.py computes both from the run's inputs.
 //
-// Bound on the H100: work, not bytes.  At the 1M bench scene the kernel
-// reads the 59 MB candidate plane ~3.75 times (halo re-reads, mostly from
-// L2) and the 117 MB query plane once, ~0.1 ms of HBM time, but runs
-// ~1.8M queries x 288 candidates x 2 passes of mask tests plus the full
-// pair math on the ~9 true neighbours of each query: instruction-rate
-// bound.  The design keeps every candidate read in shared memory and does
-// the pair math only behind the mask; fewer mask tests (sorting
-// candidates within a tile, or a cell list finer than the tile) are work
-// for later.  K1b adds 2 x n_sp mask tests to the few flagged queries.
+// The first design (one thread per slot, two full passes over the 288
+// staged slots of the 3x3 window) ran at ~3% of that bound, held back by
+// instruction issue:
+//   1. 46% of the slots are empty, and their lanes rode along in every
+//      warp; each query tested all 288 staged slots, ~131 of them empty;
+//   2. each pass re-ran the mask over all 288 slots (576 tests a query);
+//   3. a warp ran the pair math for slot j whenever any lane masked j in,
+//      so ~70-90 pair bodies per pass for ~8 true neighbours a lane.
+// This design answers each point:
+//   1. Compact at staging.  The block stages the candidates of the
+//      3 x (T+2) tiles around its run with the empty slots (id < 0)
+//      removed and the order kept: one ballot word per 32 staged slots
+//      and an exclusive prefix over the words give each live slot its
+//      place, so a query's three column ranges are contiguous and every
+//      query walks the first design's candidate sequence minus slots
+//      that its mask rejects anyway.  A carried binning packs fresh-dead
+//      agents inert inside a bucket, so no prefix-of-bucket shortcut is
+//      assumed.  Threads take the block's live queries (warp-aggregated,
+//      slot order within a warp); empty slots get their rec row first,
+//      and a block with no live query exits before staging.
+//   2. One mask pass.  It tests each compacted candidate once and appends
+//      the staged index of every hit, in walk order, to the query's list
+//      in shared memory (uint16, LIST_CAP entries).  The TTC pass and the
+//      force pass then walk the list, in the same order, so each query's
+//      float operations are the first design's and so is its result, bit
+//      for bit.  A query with more than LIST_CAP hits re-walks the
+//      compacted window (and segment) with the mask for each pass, in the
+//      same order, so the result stays exact; the optional counter
+//      `overflow` counts such queries.
+//   3. Divergence follows the longest list in a warp (~10-15 at the bench
+//      density), not the union of the lanes' windows.
+// K1b stages the spill plane (4 KB at n_sp = 128) behind the window, only
+// in blocks that hold a flagged live query, and walks it as a fourth
+// segment after the window for flagged queries, in the list and the
+// re-walk alike.
+//
+// Shared memory (make_layout; k1_geometry in ops/zanlungo_bucketed.py
+// mirrors it to refuse, before the launch, a block the H100 cannot hold):
+// the staged candidates as two float4 arrays [cols + n_sp],
+// (px, py, id, prio) for the mask walk's one 16-byte load a candidate and
+// (vx, vy, fx, fy) for the pair math; the ballot words and their prefix;
+// the lists [LIST_CAP][threads] uint16; the live-query slots
+// [T * bucket] uint16; one counter.
+#include <atomic>
+
 #include <cuda_runtime.h>
 
 #include "zanlungo_pair.cuh"
 
 namespace crowdsim {
 
+constexpr int LIST_CAP = 32;
+constexpr int MAX_THREADS = 512;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+struct Layout {
+  int cols;    // staged window slots, 3 * (T + 2) * bucket
+  int row;     // staged candidates: cols + n_sp
+  int chunks;  // ballot words, ceil(cols / 32)
+  size_t stage_off, ballot_off, prefix_off, list_off, qslot_off, count_off;
+  size_t bytes;
+};
+
+__host__ __device__ __forceinline__ size_t align16(size_t x) {
+  return (x + 15) & ~size_t(15);
+}
+
+__host__ __device__ __forceinline__ Layout make_layout(int T, int bucket,
+                                                       int threads,
+                                                       int n_sp) {
+  Layout L;
+  L.cols = 3 * (T + 2) * bucket;
+  L.row = L.cols + n_sp;
+  L.chunks = (L.cols + 31) / 32;
+  size_t o = 0;
+  L.stage_off = o;
+  o = align16(o + sizeof(float) * NUM_CAND * L.row);
+  L.ballot_off = o;
+  o = align16(o + sizeof(unsigned) * L.chunks);
+  L.prefix_off = o;
+  o = align16(o + sizeof(int) * (L.chunks + 1));
+  L.list_off = o;
+  o = align16(o + sizeof(unsigned short) * LIST_CAP * threads);
+  L.qslot_off = o;
+  o = align16(o + sizeof(unsigned short) * T * bucket);
+  L.count_off = o;
+  L.bytes = align16(o + sizeof(int));
+  return L;
+}
+
+// Live staged slots before flat staged index i (0 <= i <= cols).
+__device__ __forceinline__ int live_before(const unsigned* ballots,
+                                           const int* prefix, int i) {
+  const int r = i & 31;
+  return prefix[i >> 5] +
+         (r ? __popc(ballots[i >> 5] & ((1u << r) - 1u)) : 0);
+}
+
+// Calls f(j) for every staged candidate j that the query's mask takes, in
+// walk order: the three column ranges [lo[k], hi[k]) of the compacted
+// window, then (K1b, flagged queries) the spill segment [sp0, sp0 + n_sp).
+// P[j] = (px, py, id, prio).
+template <class F>
+__device__ __forceinline__ void walk(const Query& q, const float4* P,
+                                     const int (&lo)[3], const int (&hi)[3],
+                                     bool spill_seg, int sp0, int n_sp,
+                                     F&& f) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll 4
+    for (int j = lo[k]; j < hi[k]; ++j) {
+      const float4 p = P[j];
+      if (pair_mask(q, p.x, p.y, p.z)) f(j);
+    }
+  }
+  if (spill_seg) {
+    for (int j = sp0; j < sp0 + n_sp; ++j) {
+      const float4 p = P[j];
+      if (pair_mask(q, p.x, p.y, p.z)) f(j);
+    }
+  }
+}
+
 template <bool INT_PRIO, bool SPILL>
-__global__ void zanlungo_bucketed_kernel(const float* __restrict__ zp5,
-                                         const float* __restrict__ packed_t,
-                                         const float* __restrict__ packed_T,
-                                         const int* __restrict__ sflag,
-                                         const float* __restrict__ sp_T,
-                                         float* __restrict__ out, int tx,
-                                         int ty, int bucket, int T,
-                                         int sub_tiles, int n_sp) {
-  // [NUM_CAND][3][W]; K1b: then [NUM_CAND][n_sp].
-  extern __shared__ float stage[];
+__global__ void __launch_bounds__(MAX_THREADS)
+    zanlungo_bucketed_kernel(const float* __restrict__ zp5,
+                             const float* __restrict__ packed_t,
+                             const float* __restrict__ packed_T,
+                             const int* __restrict__ sflag,
+                             const float* __restrict__ sp_T,
+                             float* __restrict__ out,
+                             int* __restrict__ overflow, int tx, int ty,
+                             int bucket, int T, int sub_tiles, int n_sp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L = make_layout(T, bucket, blockDim.x, SPILL ? n_sp : 0);
+  float4* P = reinterpret_cast<float4*>(smem + L.stage_off);
+  float4* V = P + L.row;
+  unsigned* ballots = reinterpret_cast<unsigned*>(smem + L.ballot_off);
+  int* prefix = reinterpret_cast<int*>(smem + L.prefix_off);
+  unsigned short* lists =
+      reinterpret_cast<unsigned short*>(smem + L.list_off);
+  unsigned short* qslot =
+      reinterpret_cast<unsigned short*>(smem + L.qslot_off);
+  int* n_live = reinterpret_cast<int*>(smem + L.count_off);
+
   const long long slots = (long long)tx * ty * bucket;
   const int runs = (ty + T - 1) / T;
   const int tcx = blockIdx.x / runs;
   const int tcy0 = (blockIdx.x % runs) * T;
-  const int W = (T + 2) * bucket;
-  const int lt = threadIdx.x / bucket;
-  const int tcy = tcy0 + lt;
-  const bool in_world = tcy < ty;
-  const long long qs =
-      ((long long)tcx * ty + tcy) * bucket + threadIdx.x % bucket;
+  const int nslots = min(T, ty - tcy0) * bucket;  // in-world query slots
+  const long long qs0 = ((long long)tcx * ty + tcy0) * bucket;
+  const int lane = threadIdx.x & 31;
+  const int n_sub = ty / sub_tiles;
 
-  const float* qrow = packed_t + qs * NUM_F;
-  const float qid = in_world ? qrow[ROW_ID] : -1.f;
-  const bool live = qid >= 0.f;
-  if (!__syncthreads_or(live)) {
-    if (in_world) {
-      out[2 * qs] = qrow[ROW_RX];
-      out[2 * qs + 1] = qrow[ROW_RY];
-    }
-    return;
-  }
+  if (threadIdx.x == 0) *n_live = 0;
+  __syncthreads();
 
-  for (int i = threadIdx.x; i < 3 * W; i += blockDim.x) {
-    const int k = i / W;
-    const int j = i - k * W;
-    const int c = tcx + k - 1;
-    const int tile = tcy0 - 1 + j / bucket;
-    const bool ok = c >= 0 && c < tx && tile >= 0 && tile < ty;
-    const long long s = ((long long)c * ty + tile) * bucket + j % bucket;
-    for (int f = 0; f < NUM_CAND; ++f) {
-      stage[(f * 3 + k) * W + j] =
-          ok ? packed_T[f * slots + s] : sentinel_feature(f);
+  // 1. Queries: empty slots get their rec row; live slots are listed.
+  bool any_flagged = false;
+  for (int base = 0; base < nslots; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    const bool in = i < nslots;
+    const long long s = qs0 + i;
+    const bool live = in && packed_T[ROW_ID * slots + s] >= 0.f;
+    if (in && !live) {
+      out[2 * s] = packed_t[s * NUM_F + ROW_RX];
+      out[2 * s + 1] = packed_t[s * NUM_F + ROW_RY];
     }
-  }
-  // K1b: the query's sub-block flag, and the spill plane where needed.
-  bool flagged = false;
-  float* sp = stage + NUM_CAND * 3 * W;
-  if (SPILL) {
-    flagged =
-        in_world && sflag[tcx * (ty / sub_tiles) + tcy / sub_tiles] > 0;
-    if (__syncthreads_or(live && flagged)) {
-      for (int i = threadIdx.x; i < NUM_CAND * n_sp; i += blockDim.x)
-        sp[i] = sp_T[i];
+    const unsigned bal = __ballot_sync(FULL_MASK, live);
+    int first = 0;
+    if (lane == 0 && bal) first = atomicAdd(n_live, __popc(bal));
+    first = __shfl_sync(FULL_MASK, first, 0);
+    if (live) qslot[first + __popc(bal & ((1u << lane) - 1u))] = i;
+    if (SPILL) {
+      const bool flagged =
+          live && sflag[tcx * n_sub + (tcy0 + i / bucket) / sub_tiles] > 0;
+      any_flagged |= __syncthreads_or(flagged) != 0;
     }
   }
   __syncthreads();
-  if (!in_world) return;
+  const int nq = *n_live;
+  if (nq == 0) return;
 
-  const Query q = load_query(qrow);
-  float ox = q.rx;
-  float oy = q.ry;
-  if (live) {
-    const Params zp = load_params(zp5);
-    // Staged tile index of tile tcy + dy is lt + 1 + dy; rows past the
-    // world's top or bottom are skipped (they hold sentinels anyway).
-    const int dy_lo = tcy > 0 ? -1 : 0;
-    const int dy_hi = tcy < ty - 1 ? 1 : 0;
-    const int j_lo = (lt + 1 + dy_lo) * bucket;
-    const int j_hi = (lt + 2 + dy_hi) * bucket;
+  // 2. Stage the window's live candidates, compacted in order.
+  const int W = (T + 2) * bucket;  // staged slots of one column
+  for (int base = 0; base < L.cols; base += blockDim.x) {
+    const int i = base + threadIdx.x;
+    bool live = false;
+    if (i < L.cols) {
+      const int k = i / W;
+      const int j = i - k * W;
+      const int c = tcx + k - 1;
+      const int tile = tcy0 - 1 + j / bucket;
+      if (c >= 0 && c < tx && tile >= 0 && tile < ty) {
+        const long long s = ((long long)c * ty + tile) * bucket + j % bucket;
+        live = packed_T[ROW_ID * slots + s] >= 0.f;
+      }
+    }
+    const unsigned bal = __ballot_sync(FULL_MASK, live);
+    if (lane == 0 && i < L.cols) ballots[i >> 5] = bal;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int carry = 0;
+    for (int base = 0; base < L.chunks; base += 32) {
+      const int c = base + lane;
+      const int v = c < L.chunks ? __popc(ballots[c]) : 0;
+      int incl = v;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(FULL_MASK, incl, d);
+        if (lane >= d) incl += t;
+      }
+      if (c < L.chunks) prefix[c] = carry + incl - v;
+      carry += __shfl_sync(FULL_MASK, incl, 31);
+    }
+    if (lane == 0) prefix[L.chunks] = carry;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < L.cols; i += blockDim.x) {
+    const unsigned bal = ballots[i >> 5];
+    if (!((bal >> (i & 31)) & 1u)) continue;
+    const int dst = live_before(ballots, prefix, i);
+    const int k = i / W;
+    const int j = i - k * W;
+    const long long s =
+        ((long long)(tcx + k - 1) * ty + tcy0 - 1 + j / bucket) * bucket +
+        j % bucket;
+    P[dst] = make_float4(packed_T[ROW_PX * slots + s],
+                         packed_T[ROW_PY * slots + s],
+                         packed_T[ROW_ID * slots + s],
+                         packed_T[ROW_PRIO * slots + s]);
+    V[dst] = make_float4(packed_T[ROW_VX * slots + s],
+                         packed_T[ROW_VY * slots + s],
+                         packed_T[ROW_FX * slots + s],
+                         packed_T[ROW_FY * slots + s]);
+  }
+  if (SPILL && any_flagged) {
+    for (int i = threadIdx.x; i < n_sp; i += blockDim.x) {
+      P[L.cols + i] = make_float4(sp_T[ROW_PX * n_sp + i],
+                                  sp_T[ROW_PY * n_sp + i],
+                                  sp_T[ROW_ID * n_sp + i],
+                                  sp_T[ROW_PRIO * n_sp + i]);
+      V[L.cols + i] = make_float4(sp_T[ROW_VX * n_sp + i],
+                                  sp_T[ROW_VY * n_sp + i],
+                                  sp_T[ROW_FX * n_sp + i],
+                                  sp_T[ROW_FY * n_sp + i]);
+    }
+  }
+  __syncthreads();
+
+  // 3. Each thread takes live queries: one mask pass that records the
+  //    hits, then the TTC and force passes over the list.
+  const Params zp = load_params(zp5);
+  const float neg_inv_fd = -1.f / zp.force_distance;
+  const float inv_mass = 1.f / zp.agent_mass;
+  unsigned short* list = lists + threadIdx.x;  // entry m: list[m * threads]
+  const int stride = blockDim.x;
+
+  for (int qi = threadIdx.x; qi < nq; qi += blockDim.x) {
+    const int i = qslot[qi];
+    const int lt = i / bucket;
+    const long long qs = qs0 + i;
+    const Query q = load_query(packed_t + qs * NUM_F);
+    const bool flagged =
+        SPILL && sflag[tcx * n_sub + (tcy0 + lt) / sub_tiles] > 0;
+    // Staged tiles tcy - 1 .. tcy + 1 of column k; tiles outside the world
+    // hold no live slot, so their ranges are empty.
+    int lo[3], hi[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      lo[k] = live_before(ballots, prefix, k * W + lt * bucket);
+      hi[k] = live_before(ballots, prefix, k * W + (lt + 3) * bucket);
+    }
+
+    int n = 0;
+    walk(q, P, lo, hi, flagged, L.cols, n_sp, [&](int j) {
+      if (n < LIST_CAP) list[n * stride] = (unsigned short)j;
+      ++n;
+    });
+    const bool over = n > LIST_CAP;
+    if (over && overflow != nullptr) atomicAdd(overflow, 1);
 
     float t_i = CUDART_INF_F;
-    for (int k = 0; k < 3; ++k) {
-      const float* px = stage + (ROW_PX * 3 + k) * W;
-      const float* py = stage + (ROW_PY * 3 + k) * W;
-      const float* vx = stage + (ROW_VX * 3 + k) * W;
-      const float* vy = stage + (ROW_VY * 3 + k) * W;
-      const float* id = stage + (ROW_ID * 3 + k) * W;
-      for (int j = j_lo; j < j_hi; ++j) {
-        if (pair_mask(q, px[j], py[j], id[j])) {
-          t_i = fminf(t_i, pair_ttc(q, vx[j], vy[j], px[j], py[j],
-                                    zp.agent_radius));
-        }
-      }
-    }
-    if (SPILL && flagged) {
-      const float* px = sp + ROW_PX * n_sp;
-      const float* py = sp + ROW_PY * n_sp;
-      const float* vx = sp + ROW_VX * n_sp;
-      const float* vy = sp + ROW_VY * n_sp;
-      const float* id = sp + ROW_ID * n_sp;
-      for (int j = 0; j < n_sp; ++j) {
-        if (pair_mask(q, px[j], py[j], id[j])) {
-          t_i = fminf(t_i, pair_ttc(q, vx[j], vy[j], px[j], py[j],
-                                    zp.agent_radius));
-        }
-      }
+    auto ttc = [&](int j) {
+      const float4 p = P[j];
+      const float4 v = V[j];
+      t_i = fminf(t_i, pair_ttc(q, v.x, v.y, p.x, p.y, zp.agent_radius));
+    };
+    if (over) {
+      walk(q, P, lo, hi, flagged, L.cols, n_sp, ttc);
+    } else {
+      for (int m = 0; m < n; ++m) ttc(list[m * stride]);
     }
 
+    float ox = q.rx;
+    float oy = q.ry;
     if (isfinite(t_i)) {
       const float inv_t = 1.f / (t_i > 0.f ? t_i : 1.f);
-      const float neg_inv_fd = -1.f / zp.force_distance;
       float fx = 0.f;
       float fy = 0.f;
-      for (int k = 0; k < 3; ++k) {
-        const float* px = stage + (ROW_PX * 3 + k) * W;
-        const float* py = stage + (ROW_PY * 3 + k) * W;
-        const float* vx = stage + (ROW_VX * 3 + k) * W;
-        const float* vy = stage + (ROW_VY * 3 + k) * W;
-        const float* fxr = stage + (ROW_FX * 3 + k) * W;
-        const float* fyr = stage + (ROW_FY * 3 + k) * W;
-        const float* pr = stage + (ROW_PRIO * 3 + k) * W;
-        const float* id = stage + (ROW_ID * 3 + k) * W;
-        for (int j = j_lo; j < j_hi; ++j) {
-          if (pair_mask(q, px[j], py[j], id[j])) {
-            pair_force<INT_PRIO>(zp, t_i, inv_t, neg_inv_fd, q, px[j], py[j],
-                                 vx[j], vy[j], fxr[j], fyr[j], pr[j], fx,
-                                 fy);
-          }
-        }
+      auto force = [&](int j) {
+        const float4 p = P[j];
+        const float4 v = V[j];
+        pair_force<INT_PRIO>(zp, t_i, inv_t, neg_inv_fd, q, p.x, p.y, v.x,
+                             v.y, v.z, v.w, p.w, fx, fy);
+      };
+      if (over) {
+        walk(q, P, lo, hi, flagged, L.cols, n_sp, force);
+      } else {
+        for (int m = 0; m < n; ++m) force(list[m * stride]);
       }
-      if (SPILL && flagged) {
-        const float* px = sp + ROW_PX * n_sp;
-        const float* py = sp + ROW_PY * n_sp;
-        const float* vx = sp + ROW_VX * n_sp;
-        const float* vy = sp + ROW_VY * n_sp;
-        const float* fxr = sp + ROW_FX * n_sp;
-        const float* fyr = sp + ROW_FY * n_sp;
-        const float* pr = sp + ROW_PRIO * n_sp;
-        const float* id = sp + ROW_ID * n_sp;
-        for (int j = 0; j < n_sp; ++j) {
-          if (pair_mask(q, px[j], py[j], id[j])) {
-            pair_force<INT_PRIO>(zp, t_i, inv_t, neg_inv_fd, q, px[j], py[j],
-                                 vx[j], vy[j], fxr[j], fyr[j], pr[j], fx,
-                                 fy);
-          }
-        }
-      }
-      const float inv_mass = 1.f / zp.agent_mass;
       ox = q.rx + fx * inv_mass;
       oy = q.ry + fy * inv_mass;
     }
+    out[2 * qs] = ox;
+    out[2 * qs + 1] = oy;
   }
-  out[2 * qs] = ox;
-  out[2 * qs + 1] = oy;
+}
+
+// The launch geometry the caller chose (ops/zanlungo_bucketed.py
+// k1_geometry): T tiles of one column a block, `threads` a block.
+static cudaError_t check_geometry(int bucket, int T, int threads, int n_sp) {
+  if (threads < 32 || threads > MAX_THREADS || threads % 32 || T < 1 ||
+      bucket < 1 || T * bucket > 65535 ||
+      make_layout(T, bucket, threads, n_sp).row > 65536)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Opts a kernel into the SM's whole shared memory, once per device: the
+// carveout (three blocks of the bench geometry, ~70 KB each, share an SM)
+// and the largest dynamic size a block may take.
+template <bool INT_PRIO, bool SPILL>
+static cudaError_t configure_once() {
+  static std::atomic<unsigned> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  auto kernel = zanlungo_bucketed_kernel<INT_PRIO, SPILL>;
+  int max_smem = 0;
+  e = cudaDeviceGetAttribute(&max_smem,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 template <bool INT_PRIO, bool SPILL>
 static cudaError_t launch(const float* zp5, const float* packed_t,
                           const float* packed_T, const int* sflag,
-                          const float* sp_T, float* out, int tx, int ty,
-                          int bucket, int T, int sub_tiles, int n_sp,
-                          cudaStream_t stream) {
+                          const float* sp_T, float* out, int* overflow,
+                          int tx, int ty, int bucket, int T, int threads,
+                          int sub_tiles, int n_sp, cudaStream_t stream) {
+  cudaError_t e = configure_once<INT_PRIO, SPILL>();
+  if (e != cudaSuccess) return e;
   const int runs = (ty + T - 1) / T;
-  const size_t smem =
-      sizeof(float) * NUM_CAND * (3 * (T + 2) * bucket + (SPILL ? n_sp : 0));
-  auto kernel = zanlungo_bucketed_kernel<INT_PRIO, SPILL>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<tx * runs, T * bucket, smem, stream>>>(
-      zp5, packed_t, packed_T, sflag, sp_T, out, tx, ty, bucket, T,
-      sub_tiles, n_sp);
+  const size_t smem = make_layout(T, bucket, threads, SPILL ? n_sp : 0).bytes;
+  zanlungo_bucketed_kernel<INT_PRIO, SPILL>
+      <<<tx * runs, threads, smem, stream>>>(zp5, packed_t, packed_T, sflag,
+                                             sp_T, out, overflow, tx, ty,
+                                             bucket, T, sub_tiles, n_sp);
   return cudaGetLastError();
-}
-
-// Tiles per block: blocks of more than 1024 threads cannot launch, so
-// shrink the run.
-static int run_tiles(int tiles_per_block, int bucket) {
-  int T = tiles_per_block;
-  while (T > 1 && T * bucket > 1024) --T;
-  return T;
 }
 
 }  // namespace crowdsim
 
-extern "C" int crowdsim_zanlungo_bucketed(const float* zp5,
-                                          const float* packed_t,
-                                          const float* packed_T, float* out,
-                                          int tx, int ty, int bucket,
-                                          int tiles_per_block, int int_prio,
-                                          void* stream) {
-  const int T = crowdsim::run_tiles(tiles_per_block, bucket);
-  if (T * bucket > 1024) return (int)cudaErrorInvalidConfiguration;
+extern "C" int crowdsim_zanlungo_bucketed(
+    const float* zp5, const float* packed_t, const float* packed_T,
+    float* out, int* overflow, int tx, int ty, int bucket, int T,
+    int threads, int int_prio, void* stream) {
+  cudaError_t e = crowdsim::check_geometry(bucket, T, threads, 0);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      int_prio ? crowdsim::launch<true, false>(zp5, packed_t, packed_T,
-                                               nullptr, nullptr, out, tx, ty,
-                                               bucket, T, 1, 0, s)
-               : crowdsim::launch<false, false>(zp5, packed_t, packed_T,
-                                                nullptr, nullptr, out, tx, ty,
-                                                bucket, T, 1, 0, s);
+  e = int_prio ? crowdsim::launch<true, false>(
+                     zp5, packed_t, packed_T, nullptr, nullptr, out,
+                     overflow, tx, ty, bucket, T, threads, 1, 0, s)
+               : crowdsim::launch<false, false>(
+                     zp5, packed_t, packed_T, nullptr, nullptr, out,
+                     overflow, tx, ty, bucket, T, threads, 1, 0, s);
   return (int)e;
 }
 
 extern "C" int crowdsim_zanlungo_bucketed_spill(
     const float* zp5, const float* packed_t, const float* packed_T,
-    const int* sflag, const float* sp_T, float* out, int tx, int ty,
-    int bucket, int tiles_per_block, int sub_tiles, int n_sp, int int_prio,
-    void* stream) {
-  const int T = crowdsim::run_tiles(tiles_per_block, bucket);
-  if (T * bucket > 1024 || sub_tiles <= 0 || ty % sub_tiles || n_sp <= 0)
-    return (int)cudaErrorInvalidConfiguration;
+    const int* sflag, const float* sp_T, float* out, int* overflow, int tx,
+    int ty, int bucket, int T, int threads, int sub_tiles, int n_sp,
+    int int_prio, void* stream) {
+  if (sub_tiles <= 0 || ty % sub_tiles || n_sp <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = crowdsim::check_geometry(bucket, T, threads, n_sp);
+  if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      int_prio ? crowdsim::launch<true, true>(zp5, packed_t, packed_T, sflag,
-                                              sp_T, out, tx, ty, bucket, T,
-                                              sub_tiles, n_sp, s)
-               : crowdsim::launch<false, true>(zp5, packed_t, packed_T, sflag,
-                                               sp_T, out, tx, ty, bucket, T,
-                                               sub_tiles, n_sp, s);
+  e = int_prio ? crowdsim::launch<true, true>(
+                     zp5, packed_t, packed_T, sflag, sp_T, out, overflow, tx,
+                     ty, bucket, T, threads, sub_tiles, n_sp, s)
+               : crowdsim::launch<false, true>(
+                     zp5, packed_t, packed_T, sflag, sp_T, out, overflow, tx,
+                     ty, bucket, T, threads, sub_tiles, n_sp, s);
   return (int)e;
 }
 

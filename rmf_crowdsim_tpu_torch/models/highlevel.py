@@ -29,7 +29,7 @@ class HighLevelPlanner:
 
     uses_routes: bool = False
 
-    def init_params(self, device="cpu"):
+    def init_params(self, device="cuda"):
         return ()
 
     def plan(self, params, state: SimState) -> HLResult:  # pragma: no cover
@@ -42,7 +42,7 @@ class ConstantVelocity(HighLevelPlanner):
     def __init__(self, vel):
         self._vel = tuple(float(v) for v in vel)
 
-    def init_params(self, device="cpu"):
+    def init_params(self, device="cuda"):
         return {"vel": torch.tensor(self._vel, dtype=torch.float64,
                                     device=device)}
 
@@ -63,7 +63,7 @@ class ParityVelocity(HighLevelPlanner):
     def __init__(self, vel):
         self._vel = tuple(float(v) for v in vel)
 
-    def init_params(self, device="cpu"):
+    def init_params(self, device="cuda"):
         return {"vel": torch.tensor(self._vel, dtype=torch.float64,
                                     device=device)}
 

@@ -26,7 +26,7 @@ class LocalPlanner:
     the agent's own fresh preferred velocity, while neighbors expose the
     committed ``state.preferred_vel`` (see the JAX LocalPlanner)."""
 
-    def init_params(self, device="cpu"):
+    def init_params(self, device="cuda"):
         return ()
 
     def plan(self, params, state, nbr, rec_vel, self_pref):  # pragma: no cover
@@ -230,7 +230,7 @@ class Zanlungo(LocalPlanner):
                    force_distance, agent_mass, agent_radius, force_cap)
         self.force_chunk = int(force_chunk)
 
-    def init_params(self, device="cpu"):
+    def init_params(self, device="cuda"):
         s, o, r, f, m, rad, cap = self._p
 
         def t(v):

@@ -60,7 +60,7 @@ def zparams5(zp) -> torch.Tensor:
     ]).to(torch.float32)
 
 
-def sentinel_rows(n_rows: int, device="cpu") -> torch.Tensor:
+def sentinel_rows(n_rows: int, device="cuda") -> torch.Tensor:
     """[n_rows, NUM_F] empty-slot rows: position 1e30, id -1, zeros
     elsewhere."""
     s = torch.zeros((n_rows, NUM_F), dtype=torch.float32, device=device)
@@ -466,8 +466,75 @@ def pair_mask(q: dict, c: dict) -> torch.Tensor:
 # K1: the force kernel
 # ---------------------------------------------------------------------------
 
-# Tiles of one column per K1 block (one thread per query slot).
-K1_TILES_PER_BLOCK = 8
+# Tiles of one column per K1/K1b block: at bucket 32 a block takes ~74 KB
+# of shared memory and 256 threads, so three blocks fill an SM's 228 KB
+# (k1_geometry), and the halo costs 17/15 reads of the candidate plane.
+K1_TILES_PER_BLOCK = 15
+
+# Entries of a query's neighbour list in K1/K1b (LIST_CAP in
+# csrc/zanlungo_bucketed.cu); a query with more hits re-walks its window.
+K1_LIST_CAP = 32
+
+# Most threads of a K1/K1b block (MAX_THREADS in the .cu).
+K1_MAX_THREADS = 512
+
+# Shared memory one block of the H100 can take.
+SMEM_LIMIT = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Geometry:
+    """Launch geometry of K1/K1b: ``blocks`` runs of ``tiles`` tiles of
+    one column, ``threads`` per block, ``smem_bytes`` of dynamic shared
+    memory."""
+
+    tiles: int
+    threads: int
+    blocks: int
+    smem_bytes: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def k1_geometry(cfg: BucketConfig, tiles_per_block: int = K1_TILES_PER_BLOCK,
+                n_sp: int = 0) -> K1Geometry:
+    """K1's (``n_sp`` = 0) or K1b's launch geometry.  The kernel takes
+    ``tiles`` and ``threads`` and lays out its shared memory itself
+    (``make_layout`` in ``csrc/zanlungo_bucketed.cu``); ``smem_bytes``
+    mirrors that layout so that a block the card cannot hold is refused
+    here, before the launch: the
+    compacted stage (NUM_CAND f32 for each of 3 (T+2) bucket window
+    slots and n_sp spill lanes), the ballot words and their prefix, the
+    neighbour lists [K1_LIST_CAP, threads] uint16, the live-query slots
+    [T bucket] uint16 and a counter.
+    Threads: half the block's slots (the bench scene fills 54% of them),
+    rounded up to a warp.  Raises if the block needs more than the
+    H100's 232,448 bytes."""
+    b = cfg.bucket
+    tiles = max(1, min(int(tiles_per_block), cfg.ty))
+    threads = min(K1_MAX_THREADS, max(32, -(-tiles * b // 64) * 32))
+    cols = 3 * (tiles + 2) * b
+    row = cols + n_sp
+    chunks = -(-cols // 32)
+    smem = _align16(4 * NUM_CAND * row)
+    smem = _align16(smem + 4 * chunks)
+    smem = _align16(smem + 4 * (chunks + 1))
+    smem = _align16(smem + 2 * K1_LIST_CAP * threads)
+    smem = _align16(smem + 2 * tiles * b)
+    smem = _align16(smem + 4)
+    if tiles * b > 65535 or row > 65536:
+        raise ValueError(f"K1: {tiles} tiles of {b} slots and {n_sp} spill "
+                         f"lanes overflow the kernel's uint16 indices")
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K1: {smem} bytes of shared memory per block "
+                         f"({tiles} tiles of bucket {b}, {n_sp} spill lanes) "
+                         f"exceed {SMEM_LIMIT}")
+    blocks = cfg.tx * -(-cfg.ty // tiles)
+    return K1Geometry(tiles=tiles, threads=threads, blocks=blocks,
+                      smem_bytes=smem)
+
 
 # Most spills K1b takes as candidates (the JAX package's S_K,
 # zanlungo_pallas.py:2162); more fall back to the spill patch.
@@ -516,12 +583,17 @@ def forces_bucketed_plain(cfg: BucketConfig, zp5, packed_t, packed_T, int_prio,
 
 def zanlungo_forces_bucketed(cfg: BucketConfig, zp5: torch.Tensor,
                              packed_t: torch.Tensor, packed_T: torch.Tensor,
-                             int_prio: bool = False) -> torch.Tensor:
+                             int_prio: bool = False,
+                             overflow: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """K1 over the packed plane: [slots, 2] f32 velocities (rec + F/m)
     per bucket slot (replaces zanlungo_pallas.py:1348
     ``zanlungo_forces_bucketed``).  ``zp5``: [5] f32 from
     :func:`zparams5`.  CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/zanlungo_bucketed.cu``."""
+    launch ``csrc/zanlungo_bucketed.cu``.  ``overflow``: an optional [1]
+    int32 CUDA tensor to which the kernel adds the queries whose hits
+    overflow the neighbour list (a measurement aid; the result is exact
+    either way)."""
     if packed_t.device.type == "cpu":
         return forces_bucketed_plain(cfg, zp5, packed_t, packed_T, int_prio)
     from ..utils import cuda_build
@@ -531,19 +603,28 @@ def zanlungo_forces_bucketed(cfg: BucketConfig, zp5: torch.Tensor,
         zp5=(zp5, torch.float32, (5,)),
         packed_t=(packed_t, torch.float32, (cfg.slots, NUM_F)),
         packed_T=(packed_T, torch.float32, (NUM_CAND, cfg.slots)),
+        **_overflow_spec(overflow),
     )
+    geo = k1_geometry(cfg)
     out = torch.empty((cfg.slots, 2), dtype=torch.float32,
                       device=packed_t.device)
     cuda_build.launch(
         "crowdsim_zanlungo_bucketed",
-        zp5, packed_t, packed_T, out, cfg.tx, cfg.ty, cfg.bucket,
-        K1_TILES_PER_BLOCK, int(bool(int_prio)),
+        zp5, packed_t, packed_T, out, overflow, cfg.tx, cfg.ty, cfg.bucket,
+        geo.tiles, geo.threads, int(bool(int_prio)),
     )
     zanlungo_forces_bucketed.launches += 1
     return out
 
 
 zanlungo_forces_bucketed.launches = 0
+
+
+def _overflow_spec(overflow):
+    """``check_tensors`` entry of the optional list-overflow counter."""
+    if overflow is None:
+        return {}
+    return dict(overflow=(overflow, torch.int32, (1,)))
 
 
 def slot_flags(cfg: BucketConfig, sflag: torch.Tensor) -> torch.Tensor:
@@ -581,13 +662,16 @@ def zanlungo_forces_bucketed_spill(cfg: BucketConfig, zp5: torch.Tensor,
                                    packed_t: torch.Tensor,
                                    packed_T: torch.Tensor,
                                    sflag: torch.Tensor, sp_T: torch.Tensor,
-                                   int_prio: bool = False) -> torch.Tensor:
+                                   int_prio: bool = False,
+                                   overflow: torch.Tensor | None = None
+                                   ) -> torch.Tensor:
     """K1b: K1 with the fused-spill segment (replaces
     ``zanlungo_forces_bucketed(spill_ext=(sflag, sp_T))``,
     zanlungo_pallas.py:1365-1437).  ``sflag`` [n_blocks] int32 from
     ``spill.spill_flags``; ``sp_T`` [NUM_CAND, S] f32, id -1 on dead
     lanes.  CPU tensors take the plain version; CUDA tensors launch the
-    spill variant of ``csrc/zanlungo_bucketed.cu``."""
+    spill variant of ``csrc/zanlungo_bucketed.cu``.  ``overflow``: as
+    for :func:`zanlungo_forces_bucketed`."""
     if packed_t.device.type == "cpu":
         return forces_bucketed_spill_plain(cfg, zp5, packed_t, packed_T,
                                            sflag, sp_T, int_prio)
@@ -602,13 +686,15 @@ def zanlungo_forces_bucketed_spill(cfg: BucketConfig, zp5: torch.Tensor,
         packed_T=(packed_T, torch.float32, (NUM_CAND, cfg.slots)),
         sflag=(sflag, torch.int32, (n_blocks,)),
         sp_T=(sp_T, torch.float32, (NUM_CAND, n_sp)),
+        **_overflow_spec(overflow),
     )
+    geo = k1_geometry(cfg, n_sp=n_sp)
     out = torch.empty((cfg.slots, 2), dtype=torch.float32,
                       device=packed_t.device)
     cuda_build.launch(
         "crowdsim_zanlungo_bucketed_spill",
-        zp5, packed_t, packed_T, sflag, sp_T, out, cfg.tx, cfg.ty,
-        cfg.bucket, K1_TILES_PER_BLOCK, cfg.sub_tiles, n_sp,
+        zp5, packed_t, packed_T, sflag, sp_T, out, overflow, cfg.tx, cfg.ty,
+        cfg.bucket, geo.tiles, geo.threads, cfg.sub_tiles, n_sp,
         int(bool(int_prio)),
     )
     zanlungo_forces_bucketed_spill.launches += 1

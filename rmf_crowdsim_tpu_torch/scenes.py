@@ -14,9 +14,10 @@ import torch
 
 from .core.config import GridConfig, SimConfig
 from .core.state import make_state
-from .core.step import SimParams, build_rollout
+from .core.step import SimParams, build_rollout, payload_sort_by_key
 from .models.highlevel import ParityVelocity
 from .models.local import Zanlungo
+from .ops import zanlungo_bucketed as zb
 
 HOTSPOT_AGENTS = 48
 
@@ -74,11 +75,12 @@ def bench_positions(n_agents: int, side: float, hotspot: bool = False,
 
 
 def build_bench(n_agents: int, dtype: str = "float32",
-                backend: str = "grid_pallas", device="cpu",
+                backend: str = "grid_pallas", device="cuda",
                 hotspot: bool = False, hotspot_origin=(10.0, 10.0),
                 fused_spills: bool = False):
-    """The bench scene at ``n_agents`` on ``device``: returns (rollout,
-    params, state) like bench.py's ``build_bench``."""
+    """The bench scene at ``n_agents`` on ``device`` (the card unless the
+    caller names another device): returns (rollout, params, state) like
+    bench.py's ``build_bench``."""
     config = bench_config(n_agents, dtype=dtype, backend=backend,
                           fused_spills=fused_spills)
     hl = ParityVelocity((1.0, 0.0))
@@ -104,3 +106,37 @@ def build_bench(n_agents: int, dtype: str = "float32",
     params = SimParams(hl=(hl.init_params(device),),
                        lp=(lp.init_params(device),), sources=None)
     return rollout, params, state
+
+
+def bench_bucket_config(n_agents: int) -> zb.BucketConfig:
+    """The bucketed layout of the ``grid_pallas`` bench scene."""
+    c = bench_config(n_agents)
+    return zb.BucketConfig.create(
+        c.grid.width, c.grid.height, c.grid.offset, c.max_eyesight,
+        bucket=c.bucket_capacity, strip_tiles=c.strip_tiles,
+        sub_tiles=c.sub_tiles, tile_size=c.bucket_tile_size)
+
+
+def bench_bucketed(n_agents: int, device="cuda", steps: int = 2,
+                   hotspot_origin=(10.0, 10.0)):
+    """The inputs of the bucketed force kernels on the bench scene with
+    the 48-agent hotspot, after ``steps`` steps of the ``grid_pallas``
+    rollout: the state tile-sorted and binned as the fused pass bins it.
+    The first step starts from rest and has no pair forces; the second
+    has them, and its capped overlap forces scatter the hotspot over
+    ~8 m.  Returns (config, bucket config, params, state, rec, feat_t
+    [NUM_F, N], bpos_sorted [N], bucket_pos [N]); ``rec`` is the
+    planner's velocity, passed as both self and recommended velocity."""
+    config = bench_config(n_agents)
+    bcfg = bench_bucket_config(n_agents)
+    rollout, params, st = build_bench(n_agents, device=device, hotspot=True,
+                                      hotspot_origin=hotspot_origin)
+    st, _ = rollout(params, st, 1.0 / 60.0, steps)
+    st, _, _ = payload_sort_by_key(st, zb.tile_key(bcfg, st.position,
+                                                   st.alive),
+                                   torch.zeros_like(st.alive))
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat_t, bpos, bucket_pos, _, _ = zb.feature_rows(
+        bcfg, st.position, st.velocity, st.preferred_vel, rec, st.priority,
+        st.eyesight, rec, st.alive, use_pack_kernel=True, presorted=True)
+    return config, bcfg, params, st, rec, feat_t, bpos, bucket_pos

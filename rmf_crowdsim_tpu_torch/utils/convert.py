@@ -3,7 +3,9 @@
 No counterpart in the JAX package.  Callers turn JAX values into numpy
 first (``jax.tree.map(np.asarray, ...)`` or ``np.asarray`` per field), so
 this module, like the rest of the port, never imports JAX.  Both packages
-then compute from identical inputs.
+then compute from identical inputs.  Like every entry point of the port,
+the converters put their tensors on the card unless the caller names
+another device (a caller that wants the CPU passes ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
-def state_from_numpy(arrays, device="cpu", seed: int = 0) -> SimState:
+def state_from_numpy(arrays, device="cuda", seed: int = 0) -> SimState:
     """A :class:`SimState` from the JAX state's fields as numpy arrays
     (a mapping or an object with the field attributes).  The JAX
     ``rng_key`` has no counterpart: the state gets a fresh generator
@@ -43,7 +45,7 @@ def state_to_numpy(state: SimState) -> dict:
             for name in STATE_TENSOR_FIELDS}
 
 
-def zanlungo_params_from_numpy(arrays, device="cpu") -> ZanlungoParams:
+def zanlungo_params_from_numpy(arrays, device="cuda") -> ZanlungoParams:
     """:class:`ZanlungoParams` from the JAX ZanlungoParams' fields (0-d
     arrays), kept in float64 like the port's own ``init_params``."""
     return ZanlungoParams(**{
@@ -53,7 +55,7 @@ def zanlungo_params_from_numpy(arrays, device="cpu") -> ZanlungoParams:
     })
 
 
-def hl_params_from_numpy(arrays: Mapping, device="cpu") -> dict:
+def hl_params_from_numpy(arrays: Mapping, device="cuda") -> dict:
     """A high-level planner's parameter dict (e.g. ``{"vel": [2]}``)."""
     return {k: torch.as_tensor(np.array(v)).to(device)
             for k, v in arrays.items()}

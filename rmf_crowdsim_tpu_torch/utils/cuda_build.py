@@ -1,10 +1,11 @@
 """Build and launch the port's CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  At the first CUDA
-call they are compiled with ``nvcc`` into one shared library in
-``_build/`` inside the package (listed in ``.gitignore``), named by a hash
-of the sources and flags, and loaded with ``ctypes``.  Nothing is built
-at import time, so the kernel modules import on machines without CUDA.
+call each one is compiled with ``nvcc``, all at once in parallel, and the
+objects are linked into one shared library in ``_build/`` inside the
+package (listed in ``.gitignore``), named by a hash of the sources and
+flags, and loaded with ``ctypes``.  Nothing is built at import time, so
+the kernel modules import on machines without CUDA.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no fast math, and ``-fmad=false`` so
 the kernels round every operation as the plain PyTorch versions do (see
@@ -31,17 +32,18 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xptxas", "-v",
 )
 
 # C entry points: one code per argument before the trailing stream
-# ("p" = device pointer, "i" = int).
+# ("p" = device pointer, None for NULL; "i" = int).
 SIGNATURES = {
     "crowdsim_pack_rows": "ppiipp",
-    "crowdsim_zanlungo_bucketed": "ppppiiiii",
-    "crowdsim_zanlungo_bucketed_spill": "ppppppiiiiiii",
+    "crowdsim_zanlungo_bucketed": "pppppiiiiii",
+    "crowdsim_zanlungo_bucketed_spill": "pppppppiiiiiiii",
     "crowdsim_spill_window": "pppppppiiiii",
     "crowdsim_zanlungo_dense": "ppppiiiii",
 }
@@ -69,22 +71,40 @@ def library_path() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernels' shared library.  The
-    compiler's output (``-Xptxas -v``: registers, shared memory, spills
-    per kernel) is kept beside it in a ``.log`` file."""
+    """Compile (if needed) and load the kernels' shared library: one
+    ``nvcc -c`` per source, all started together, then one link.  The
+    compilers' output (``-Xptxas -v``: registers, shared memory, spills
+    per kernel) is kept beside the library in a ``.log`` file."""
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        tag = f"{so.stem}.{os.getpid()}"
+        sources = sorted(CSRC_DIR.glob("*.cu"))
+        objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in sources]
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(sources, objs)]
+        log, failed = [], []
+        for p, proc in zip(sources, procs):
+            log.append(f"== nvcc -c {p.name}\n{proc.communicate()[0]}")
+            if proc.returncode != 0:
+                failed.append(p.name)
+        tmp = so.with_name(f"{tag}.tmp")
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append("link")
+        for o in objs:
+            o.unlink(missing_ok=True)
+        so.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               + "".join(log))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, sig in SIGNATURES.items():
@@ -126,12 +146,13 @@ def check_tensors(caller: str, **specs) -> None:
 
 
 def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` with tensors passed as device pointers
-    and ints as ints, on the current stream of the tensors' device."""
+    """Call C entry point ``name`` with tensors passed as device pointers,
+    None as a null pointer and ints as ints, on the current stream of the
+    tensors' device."""
     lib = library()
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-             for a in args]
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor)
+             else None if a is None else int(a) for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, name)(*cargs, stream)

@@ -1,0 +1,277 @@
+"""The least time the card could take for each kernel's work.
+
+A kernel's bound is the larger of two times: the bytes it must move, each
+input byte that its work needs read once and each output byte written
+once, over the H100's 3.35 TB/s; and the f32 operations its inputs need,
+over the H100's 67 TFLOP/s outside the tensor cores.  Where the work
+depends on the data, both count what these inputs need, not the most
+they could: K1's and K4's bytes follow the live slots and rows, K2's the
+live spills; the operations are one mask test per live (query,
+candidate) pair in the kernel's window, the time to collision for every
+pair that the mask takes, and the force for every such pair of a query
+with a finite time to collision.
+
+    Bound(k1_bytes(cfg, n_live), k1_work(cfg, zp5, packed_t,
+                                         packed_T).ops(True)).ms
+
+The operation counts follow ``csrc/zanlungo_pair.cuh``, each add,
+multiply, compare, select, min, max, square root, exponential, sine,
+arcsine and division counted as one.  The counting helpers run the plain
+versions' mask and TTC math on the kernel's own inputs, in chunks, on
+whatever device those lie on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..ops import spill as _spill
+from ..ops import zanlungo_bucketed as zb
+from ..ops import zanlungo_dense as zd
+
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+MASK_OPS = 11                           # pair_mask
+TTC_OPS = 37                            # pair_ttc and the running min
+FORCE_OPS = {True: 90, False: 135}      # pair_force<int_prio>
+
+_F32 = 4
+QUERY_F = 11        # features load_query reads from a live query's row
+EMPTY_F = 3         # an empty slot's id and rec (rx, ry)
+OUT_F = 2           # each output row
+
+
+@dataclasses.dataclass(frozen=True)
+class Bound:
+    """A kernel's bytes and operations, and the least time they take."""
+
+    bytes: int
+    ops: int = 0
+
+    @property
+    def bytes_ms(self) -> float:
+        return 1e3 * self.bytes / HBM_BYTES_PER_S
+
+    @property
+    def ops_ms(self) -> float:
+        return 1e3 * self.ops / F32_OPS_PER_S
+
+    @property
+    def ms(self) -> float:
+        return max(self.bytes_ms, self.ops_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What a force kernel's inputs need: ``tests`` live (query,
+    candidate) pairs of its windows, ``pairs`` that the mask takes (each
+    needs a time to collision), ``forced`` of those whose query has a
+    finite time to collision (each needs a force)."""
+
+    tests: int = 0
+    pairs: int = 0
+    forced: int = 0
+
+    def __add__(self, other: "Work") -> "Work":
+        return Work(self.tests + other.tests, self.pairs + other.pairs,
+                    self.forced + other.forced)
+
+    def __sub__(self, other: "Work") -> "Work":
+        return Work(self.tests - other.tests, self.pairs - other.pairs,
+                    self.forced - other.forced)
+
+    def ops(self, int_prio: bool) -> int:
+        return (self.tests * MASK_OPS + self.pairs * TTC_OPS
+                + self.forced * FORCE_OPS[bool(int_prio)])
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _pair_work(zp5, q: dict, c: dict) -> Work:
+    """Work of query features ``q`` [..., Q, 1] against candidates ``c``
+    [..., 1, C] (or [..., Q, C])."""
+    mask = zb.pair_mask(q, c)
+    ttc = zb._pair_ttc(q["vx"], q["vy"], q["px"], q["py"], c["vx"],
+                       c["vy"], c["px"], c["py"], zp5[3])
+    t_i = torch.where(mask, ttc, torch.full_like(ttc, float("inf")))
+    finite = torch.isfinite(t_i.amin(-1, keepdim=True))
+    counts = torch.stack([((q["id"] >= 0) & (c["id"] >= 0)).sum(),
+                          mask.sum(), (mask & finite).sum()]).tolist()
+    return Work(*counts)
+
+
+def _slot_work(cfg, zp5, packed_t, packed_T, s, sp_T=None) -> Work:
+    """Work of query slots ``s`` [S] against their 3x3 windows, followed
+    by the spill plane's lanes where ``sp_T`` is given."""
+    cf = zb._window_candidates(cfg, packed_T, s // cfg.bucket)
+    if sp_T is not None:
+        cf = torch.cat([cf, sp_T[:, None, :].expand(-1, s.shape[0], -1)], 2)
+    q = zb.query_features(packed_t[s][:, None, :])
+    return _pair_work(zp5, q, zb.candidate_features(cf))
+
+
+# ---------------------------------------------------------------------------
+# K1, K1b: the force kernel over the bucketed plane
+# ---------------------------------------------------------------------------
+
+
+def k1_plane_bytes(cfg) -> int:
+    """An upper number for K1: ``zp5``, the whole of ``packed_t`` [slots,
+    16] and ``packed_T`` [8, slots] in and [slots, 2] out, as if every
+    slot were live and every feature needed."""
+    return _F32 * (5 + cfg.slots * (zb.NUM_F + zb.NUM_CAND + OUT_F))
+
+
+def k1_bytes(cfg, n_live: int) -> int:
+    """What K1 must move with ``n_live`` live slots: ``zp5``; for each
+    live slot the 11 query features of its ``packed_t`` row, its 8
+    candidate features of ``packed_T`` and its output row; for each empty
+    slot its id, its rec (rx, ry) and its output row."""
+    n_empty = cfg.slots - int(n_live)
+    return _F32 * (5 + int(n_live) * (QUERY_F + zb.NUM_CAND + OUT_F)
+                   + n_empty * (EMPTY_F + OUT_F))
+
+
+def k1_work(cfg, zp5, packed_t, packed_T,
+            chunk_slots: int = 1 << 16) -> Work:
+    """K1's work on these planes: every live slot against the live slots
+    of its 3x3 window."""
+    b = cfg.bucket
+    chunk_tiles = max(1, chunk_slots // b)
+    work = Work()
+    for t0 in range(0, cfg.n_tiles, chunk_tiles):
+        t1 = min(cfg.n_tiles, t0 + chunk_tiles)
+        cf = zb._window_candidates(
+            cfg, packed_T, torch.arange(t0, t1, device=packed_T.device))
+        q = zb.query_features(
+            packed_t[t0 * b:t1 * b].reshape(t1 - t0, b, zb.NUM_F))
+        work += _pair_work(zp5, q, zb.candidate_features(cf))
+    return work
+
+
+def k1b_bytes(cfg, n_live: int, sp_T) -> int:
+    """K1's bytes, the sub-block flags, and of the spill plane [8, n_sp]
+    the 8 features of each live lane and the id of each dead one."""
+    n_blocks = cfg.tx * (cfg.ty // cfg.sub_tiles)
+    lanes = sp_T.shape[1]
+    live = int((sp_T[zb.ROW_ID] >= 0).sum())
+    return k1_bytes(cfg, n_live) + _F32 * (
+        n_blocks + zb.NUM_CAND * live + (lanes - live))
+
+
+def k1b_work(cfg, zp5, packed_t, packed_T, sflag, sp_T,
+             chunk_slots: int = 1 << 14) -> Work:
+    """K1's work, with each flagged slot's window followed by the spill
+    plane's lanes."""
+    work = k1_work(cfg, zp5, packed_t, packed_T)
+    s_idx = torch.nonzero(zb.slot_flags(cfg, sflag)).squeeze(1)
+    for a in range(0, s_idx.shape[0], chunk_slots):
+        s = s_idx[a:a + chunk_slots]
+        work += (_slot_work(cfg, zp5, packed_t, packed_T, s, sp_T)
+                 - _slot_work(cfg, zp5, packed_t, packed_T, s))
+    return work
+
+
+# ---------------------------------------------------------------------------
+# K2: the spill-window kernel
+# ---------------------------------------------------------------------------
+
+
+def _k2_windows(cfg, sp_T, sp_tcx, sp_tcy):
+    """(live spills [P], their candidate slots [P, 25b], their query slots
+    [P, 9b]), as ``spill.spill_window_plain`` builds them."""
+    b, ty = cfg.bucket, cfg.ty
+    live = torch.nonzero(sp_T[zb.ROW_ID] >= 0).squeeze(1)
+    bx, by, _, _ = _spill._window_geometry(cfg, sp_tcx[live], sp_tcy[live])
+    k = torch.arange(5, device=sp_T.device)
+    base = ((bx[:, None] + k) * ty + by[:, None]) * b
+    cand = (base[..., None]
+            + torch.arange(5 * b, device=sp_T.device)).reshape(-1, 25 * b)
+    q_slots = _spill.window_query_slots(cfg, sp_tcx[live], sp_tcy[live])
+    return live, cand, q_slots
+
+
+def k2_bytes(cfg, zp5, sp_T, sp_tcx, sp_tcy) -> int:
+    """The spill list and tiles, and for the live spills only (the others'
+    blocks return at once): the distinct candidate slots of their 5x5
+    windows (8 features) and query slots of their 3x3 blocks (16
+    features) in, and their [9b, 2] rows out."""
+    live, cand, q_slots = _k2_windows(cfg, sp_T, sp_tcx, sp_tcy)
+    return (_nbytes(zp5, sp_T, sp_tcx, sp_tcy)
+            + _F32 * (zb.NUM_CAND * torch.unique(cand).numel()
+                      + zb.NUM_F * torch.unique(q_slots).numel()
+                      + 2 * q_slots.numel()))
+
+
+def k2_work(cfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
+            chunk: int = 32) -> Work:
+    """Each live spill's 3x3 queries against its 5x5 window followed by
+    the spill list."""
+    live, cand, q_slots = _k2_windows(cfg, sp_T, sp_tcx, sp_tcy)
+    work = Work()
+    for lo in range(0, live.shape[0], chunk):
+        cf = torch.cat([
+            packed_T[:, cand[lo:lo + chunk]],
+            sp_T[:, None, :].expand(-1, cand[lo:lo + chunk].shape[0], -1),
+        ], dim=2)
+        q = zb.query_features(packed_t[q_slots[lo:lo + chunk]])
+        work += _pair_work(zp5, q, zb.candidate_features(cf))
+    return work
+
+
+# ---------------------------------------------------------------------------
+# K3: the pack; K4: the dense force kernel
+# ---------------------------------------------------------------------------
+
+
+def k3_bytes(n_rows: int, slots: int) -> int:
+    """``feat_t`` [16, N] and ``bpos`` [N] in, both planes out.  K3 moves
+    bytes and computes nothing: its operations are 0."""
+    return _F32 * (n_rows * (zb.NUM_F + 1)
+                   + slots * (zb.NUM_F + zb.NUM_CAND))
+
+
+def k4_bytes(cfg, feat) -> int:
+    """``zp5`` and ``tile_start``; for each live row of ``feat`` [N, 16]
+    its 11 query features, its tile row and the 2 force features that
+    only candidates give (px, py, vx, vy, prio and id serve both); for
+    each dead row its id and rec; and one output row for each of the N
+    rows (the padding past a column's rows is not written)."""
+    n = feat.shape[0]
+    live = int((feat[:, zb.ROW_ID] >= 0).sum())
+    return _F32 * (5 + cfg.n_tiles + 1 + live * (QUERY_F + 1 + 2)
+                   + (n - live) * EMPTY_F + n * OUT_F)
+
+
+def k4_work(cfg, zp5, feat, tile_start,
+            chunk_pairs: int = 1 << 22) -> Work:
+    """Every query row against the rows of its three candidate ranges."""
+    rows, _, lo, hi = zd._query_windows(cfg, feat, tile_start)
+    work = Work()
+    if rows.shape[0] == 0:
+        return work
+    width = max(1, int((hi - lo).max()))
+    chunk = max(1, chunk_pairs // (3 * width))
+    lane = torch.arange(width, device=feat.device)
+    for a in range(0, rows.shape[0], chunk):
+        sl = slice(a, a + chunk)
+        cand = lo[sl, :, None] + lane
+        ok = (cand < hi[sl, :, None]).reshape(cand.shape[0], -1)
+        cand = torch.where(ok, cand.reshape(ok.shape), 0)
+        cf = feat[cand, :zb.NUM_CAND].permute(2, 0, 1)
+        cf[zb.ROW_ID] = torch.where(ok, cf[zb.ROW_ID],
+                                    torch.full_like(cf[zb.ROW_ID], -1.0))
+        c = {k: v.squeeze(-2) for k, v in zb.candidate_features(cf).items()}
+        q = zb.query_features(feat[rows[sl]])
+        work += _pair_work(zp5, q, c)
+    return work
+

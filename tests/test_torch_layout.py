@@ -203,4 +203,4 @@ def test_pack_has_no_window_overflow():
                                   packed_t.numpy()[:, :tzb.NUM_CAND].T)
     empty = np.setdiff1d(np.arange(slots), bpos[landed])
     np.testing.assert_array_equal(packed_t.numpy()[empty],
-                                  tzb.sentinel_rows(empty.size).numpy())
+                                  tzb.sentinel_rows(empty.size, "cpu").numpy())

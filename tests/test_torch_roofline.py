@@ -1,0 +1,191 @@
+"""Each kernel's bound (``utils/roofline.py``) and K1's launch geometry.
+
+Bytes pinned at the 1M bench config: K1 by need at 1,000,000 live slots
+(11 query + 8 candidate features + the output for each live slot; id,
+rec and the output for each of the 835,520 empty ones; zp5), and its
+whole-plane upper number (packed_t 117.47 MB + packed_T 58.74 MB + out
+14.68 MB + zp5); K3: feat_t 64 MB + bpos 4 MB + both planes 176.21 MB.
+The work counts of K1, K1b, K2 and K4 are held against counts made here
+from the positions alone; K1/K1b's shared memory within the H100's
+232,448 bytes a block.
+"""
+
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from rmf_crowdsim_tpu_torch import scenes
+from rmf_crowdsim_tpu_torch.ops import spill as tspill
+from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as tzb
+from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as tzd
+from rmf_crowdsim_tpu_torch.utils import roofline as rl
+
+from test_torch_fused_spills import CFG_ARGS, overflow_scene
+from test_torch_zanlungo import random_scene, torch_params
+
+
+def test_bytes_and_bound_at_the_1m_bench_config():
+    cfg = scenes.bench_bucket_config(1_000_000)
+    assert cfg.slots == 1_835_520
+    assert rl.k1_plane_bytes(cfg) == 190_894_100
+    assert rl.k1_bytes(cfg, 1_000_000) == 100_710_420
+    assert rl.k3_bytes(1_000_000, cfg.slots) == 244_209_920
+    b = rl.Bound(rl.k1_bytes(cfg, 1_000_000))
+    assert b.bound_by == "bytes"
+    assert b.ms == pytest.approx(0.0300628, rel=1e-5)
+    # The bench's 2.2 G f32 operations outweigh those bytes.
+    ops = rl.Bound(rl.k1_bytes(cfg, 1_000_000), 2_203_948_590)
+    assert ops.bound_by == "operations"
+    assert ops.ms == pytest.approx(0.0328948, rel=1e-5)
+    # K1b adds the sub-block flags (239 x 120) and, of a 128-lane spill
+    # plane with 62 live lanes, their 8 features and the others' ids.
+    sp_T = torch.full((8, 128), 0.5)
+    sp_T[tzb.ROW_ID, 62:] = -1.0
+    assert rl.k1b_bytes(cfg, 1_000_000, sp_T) == 100_710_420 + 4 * (
+        239 * 120 + 8 * 62 + 66)
+
+
+def test_k1_bytes_between_no_slot_and_every_slot_live():
+    cfg = scenes.bench_bucket_config(1_000_000)
+    # Every slot live: the whole planes but the 5 features of each
+    # packed_t row that load_query leaves (fx, fy, rows 13-15).
+    assert rl.k1_bytes(cfg, cfg.slots) == (
+        rl.k1_plane_bytes(cfg) - 4 * 5 * cfg.slots)
+    # No slot live: each slot's id, rec and output row.
+    assert rl.k1_bytes(cfg, 0) == 4 * (5 + 5 * cfg.slots)
+
+
+def _window_counts(cfg, pos, eye, alive):
+    """(live pairs in the 3x3 tile windows, pairs within eyesight), made
+    from the positions with the kernel mask's f32 arithmetic."""
+    tcx, tcy = tzb.tile_coords(cfg, pos)
+    near = ((tcx[:, None] - tcx[None, :]).abs() <= 1) & (
+        (tcy[:, None] - tcy[None, :]).abs() <= 1)
+    live = alive[:, None] & alive[None, :]
+    ddx = pos[None, :, 0] - pos[:, None, 0]
+    ddy = pos[None, :, 1] - pos[:, None, 1]
+    within = (ddx * ddx + ddy * ddy) < (eye * eye)[:, None]
+    not_self = ~torch.eye(pos.shape[0], dtype=torch.bool)
+    return int((near & live).sum()), int((within & live & not_self).sum())
+
+
+def _scene(seed):
+    return [torch.as_tensor(x) for x in random_scene(seed, 96, 24.0, 3.0)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_work_counts_live_tests_and_neighbours(seed):
+    cfg = tzb.BucketConfig.create(24.0, 24.0, (0.0, 0.0), 3.0, bucket=16,
+                                  strip_tiles=6, sub_tiles=6)
+    pos, vel, self_pref, pref_c, prio, eye, alive, rec = _scene(seed)
+    packed_t, packed_T, _, occ, dropped = tzb.bucketize(
+        cfg, pos, vel, pref_c, self_pref, prio, eye, rec, alive)
+    assert int(occ) <= cfg.bucket and int(dropped) == 0
+    zp5 = tzb.zparams5(torch_params())
+    w = rl.k1_work(cfg, zp5, packed_t, packed_T, chunk_slots=64)
+    tests, pairs = _window_counts(cfg, pos, eye, alive)
+    assert (w.tests, w.pairs) == (tests, pairs)
+    assert 0 < w.forced <= w.pairs
+    assert w.ops(True) == 11 * tests + 37 * pairs + 90 * w.forced
+    assert w.ops(False) == 11 * tests + 37 * pairs + 135 * w.forced
+
+
+def test_k4_work_counts_the_same_neighbours():
+    """The dense layout sees the same neighbour pairs as K1; its tests
+    are the live rows of its three candidate ranges."""
+    pos, vel, self_pref, pref_c, prio, eye, alive, rec = _scene(2)
+    dcfg = tzd.DenseConfig.create(24.0, 24.0, (0.0, 0.0), 3.0, 96)
+    key = tzb.tile_key(dcfg, pos, alive)
+    order = torch.sort(key, stable=True).indices
+    args = [x[order] for x in (pos, vel, pref_c, self_pref, prio, eye, rec,
+                               alive)]
+    feat, tile_start, _, n_over, _ = tzd.dense_prep(dcfg, key[order], *args)
+    assert int(n_over) == 0
+    w = rl.k4_work(dcfg, tzb.zparams5(torch_params()), feat, tile_start)
+    tests, pairs = _window_counts(dcfg, pos, eye, alive)
+    assert (w.tests, w.pairs) == (tests, pairs)
+    # Bytes: 14 features of each live row, id and rec of each dead one,
+    # one output row for each row (not the padded [slots, 2]).
+    n_live = int(alive.sum())
+    assert 0 < n_live < 96
+    assert rl.k4_bytes(dcfg, feat) == 4 * (
+        5 + dcfg.n_tiles + 1 + 14 * n_live + 3 * (96 - n_live) + 2 * 96)
+
+
+def test_k1b_and_k2_work_on_an_overflowing_scene():
+    tcfg = tzb.BucketConfig.create(**CFG_ARGS)
+    scene = [torch.as_tensor(x) for x in overflow_scene(11)]
+    pos, vel, self_pref, pref_c, prio, eye, alive, rec = scene
+    packed_t, packed_T, bucket_pos, occ, _ = tzb.bucketize(
+        tcfg, pos, vel, pref_c, self_pref, prio, eye, rec, alive)
+    assert int(occ) > tcfg.bucket
+    c_sp, sp, sp_tcx, sp_tcy = tspill.spill_rows(
+        tcfg, *scene, bucket_pos, tzb.FUSED_SPILL_LANES)
+    sflag = tspill.spill_flags(tcfg, sp_tcx, sp_tcy, c_sp.valid)
+    sp_T = tspill.spill_candidates(sp)
+    zp5 = tzb.zparams5(torch_params())
+
+    k1 = rl.k1_work(tcfg, zp5, packed_t, packed_T)
+    k1b = rl.k1b_work(tcfg, zp5, packed_t, packed_T, sflag, sp_T)
+    flagged = tzb.slot_flags(tcfg, sflag) & (packed_T[tzb.ROW_ID] >= 0)
+    n_spills = int((sp_T[tzb.ROW_ID] >= 0).sum())
+    assert n_spills == int(c_sp.count) > 0
+    # Every flagged live query tests every live spill lane once more.
+    assert k1b.tests - k1.tests == int(flagged.sum()) * n_spills
+    assert k1b.pairs > k1.pairs
+
+    k2 = rl.k2_work(tcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy)
+    assert k2.tests >= k2.pairs >= k2.forced > 0
+    # K2's bytes: only the live spills' windows, each slot once.
+    _, cand, q_slots = rl._k2_windows(tcfg, sp_T, sp_tcx, sp_tcy)
+    assert cand.shape[0] == n_spills
+    want = (4 * (5 + 8 * sp_T.shape[1] + 2 * sp_T.shape[1])
+            + 4 * (8 * np.unique(cand.numpy()).size
+                   + 16 * np.unique(q_slots.numpy()).size
+                   + 2 * q_slots.numel()))
+    assert rl.k2_bytes(tcfg, zp5, sp_T, sp_tcx, sp_tcy) == want
+
+
+# ---------------------------------------------------------------------------
+# K1/K1b launch geometry
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bucket", [16, 32, 64])
+def test_k1_geometry_fits_the_h100(bucket):
+    """At the 1M bench world with a 128-lane spill plane.  A bucket of 64
+    is not a BucketConfig the JAX package accepts ((sub_tiles + 2) *
+    bucket must be 128), so it is given as plain geometry: the kernel
+    itself takes any bucket."""
+    cfg = types.SimpleNamespace(tx=239, ty=240, bucket=bucket)
+    for n_sp in (0, 128):
+        g = tzb.k1_geometry(cfg, n_sp=n_sp)
+        assert g.smem_bytes <= tzb.SMEM_LIMIT == 232_448
+        assert g.smem_bytes % 16 == 0
+        assert g.threads % 32 == 0 and 32 <= g.threads <= tzb.K1_MAX_THREADS
+        assert g.threads * 2 >= g.tiles * bucket     # half the block's slots
+        assert g.blocks == 239 * -(-240 // g.tiles)
+        staged = 4 * 8 * (3 * (g.tiles + 2) * bucket + n_sp)
+        lists = 2 * tzb.K1_LIST_CAP * g.threads
+        assert staged + lists < g.smem_bytes < staged + lists + 2048 + (
+            2 * g.tiles * bucket)
+
+
+def test_k1_geometry_at_the_bench_config():
+    g = tzb.k1_geometry(scenes.bench_bucket_config(1_000_000))
+    assert (g.tiles, g.threads, g.blocks) == (15, 256, 239 * 16)
+    # Three blocks (and the 1 KB each reserves) fit one SM's 228 KB.
+    assert 3 * (g.smem_bytes + 1024) <= 233_472
+    g1b = tzb.k1_geometry(scenes.bench_bucket_config(1_000_000), n_sp=128)
+    assert 3 * (g1b.smem_bytes + 1024) <= 233_472
+
+
+def test_k1_geometry_raises_when_a_block_cannot_fit():
+    cfg = types.SimpleNamespace(tx=239, ty=240, bucket=64)
+    with pytest.raises(ValueError, match="exceed 232448"):
+        tzb.k1_geometry(cfg, tiles_per_block=32, n_sp=128)
+    with pytest.raises(ValueError, match="exceed 232448"):
+        tzb.k1_geometry(types.SimpleNamespace(tx=239, ty=240, bucket=32),
+                        n_sp=8192)

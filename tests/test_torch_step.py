@@ -80,12 +80,13 @@ def by_uid(position, uid):
 
 def port_inputs(params, state):
     """The JAX bench's state and parameters, carried across as numpy."""
-    t_state = convert.state_from_numpy(jax.tree.map(np.asarray, state))
+    t_state = convert.state_from_numpy(jax.tree.map(np.asarray, state),
+                                       device="cpu")
     t_params = SimParams(
         hl=(convert.hl_params_from_numpy(
-            jax.tree.map(np.asarray, params.hl[0])),),
+            jax.tree.map(np.asarray, params.hl[0]), device="cpu"),),
         lp=(convert.zanlungo_params_from_numpy(
-            jax.tree.map(np.asarray, params.lp[0])),),
+            jax.tree.map(np.asarray, params.lp[0]), device="cpu"),),
     )
     return t_params, t_state
 
@@ -151,7 +152,7 @@ def test_launch_counters_stay_zero_on_cpu(runs):
 def test_converter_round_trip():
     _, params, state = jax_bench("grid_pallas")
     arrays = jax.tree.map(np.asarray, state)
-    t_state = convert.state_from_numpy(arrays)
+    t_state = convert.state_from_numpy(arrays, device="cpu")
     back = convert.state_to_numpy(t_state)
     assert set(back) == set(STATE_TENSOR_FIELDS)
     for name in STATE_TENSOR_FIELDS:
@@ -159,14 +160,16 @@ def test_converter_round_trip():
                                       err_msg=name)
         assert back[name].dtype == getattr(arrays, name).dtype, name
     # The port's own scene builder gives the same state.
-    _, _, own = scenes.build_bench(N, hotspot=True, hotspot_origin=HOTSPOT)
+    _, _, own = scenes.build_bench(N, device="cpu", hotspot=True,
+                                   hotspot_origin=HOTSPOT)
     for name in STATE_TENSOR_FIELDS:
         np.testing.assert_array_equal(getattr(own, name).numpy(),
                                       back[name], err_msg=name)
     zp = convert.zanlungo_params_from_numpy(
-        jax.tree.map(np.asarray, params.lp[0]))
+        jax.tree.map(np.asarray, params.lp[0]), device="cpu")
     assert float(zp.force_cap) == 20.0 and float(zp.agent_mass) == 2.0
-    hl = convert.hl_params_from_numpy(jax.tree.map(np.asarray, params.hl[0]))
+    hl = convert.hl_params_from_numpy(jax.tree.map(np.asarray, params.hl[0]),
+                                      device="cpu")
     np.testing.assert_array_equal(hl["vel"].numpy(), [1.0, 0.0])
 
 
@@ -179,7 +182,7 @@ def test_skin_reuses_the_carried_binning():
     config = scenes.bench_config(N)
     planners = ([ParityVelocity((1.0, 0.0))],
                 [Zanlungo(1.0, 1.0, 0.0, 1.0, 2.0, 0.25, force_cap=20.0)])
-    _, params, state = scenes.build_bench(N)
+    _, params, state = scenes.build_bench(N, device="cpu")
     skin_step = build_step(config, *planners, skin_mode=True)
     plain_step = build_step(config, *planners)
     assert skin_step.skin_mode and not plain_step.skin_mode
@@ -216,7 +219,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="SourceSink"):
         build_step(SimConfig(capacity=4), [], [])(
             SimParams(hl=(), lp=(), sources=object()),
-            make_state(SimConfig(capacity=4)), DT)
+            make_state(SimConfig(capacity=4), device="cpu"), DT)
     with pytest.raises(NotImplementedError, match="event streams"):
         build_rollout(scenes.bench_config(N), *planners, event_capacity=16)
 

@@ -31,7 +31,7 @@ def jax_params():
 
 def torch_params():
     return zanlungo_params_from_numpy(
-        {k: np.float32(v) for k, v in PARAMS.items()})
+        {k: np.float32(v) for k, v in PARAMS.items()}, device="cpu")
 
 
 def random_scene(seed, n, world, eyesight_max):
