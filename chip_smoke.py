@@ -19,7 +19,10 @@ repository beside it).  Phases, each printing its own line:
    against their plain versions where queries overflow the neighbour
    list (the 1M scene one step in, while the hotspot is packed, and a
    4,096-agent scene with the hotspot on a tile corner), each kernel's
-   overflow count > 0 over them, so the re-walk runs on the card;
+   overflow count > 0 over them, so the re-walk runs on the card; K4
+   likewise on the 1M dense state with two crowds added, its list
+   overflows and its blocks that read their candidates in place both
+   > 0;
 4. gates (the port of bench.py's ``compiled_parity_check``): the
    4,096-agent bench scene with the 48-agent hotspot, 5 steps at
    dt = 1/60, against ``brute`` by uid to 2e-4 with zero truncation:
@@ -48,6 +51,7 @@ N_MAIN = 1_000_000
 N_GATE = 4096
 DT = 1.0 / 60.0
 TOL = 2e-4
+K4_REWALK_CLUSTER = 60
 
 
 def _cuda_ms(torch, fn, reps: int) -> float:
@@ -73,6 +77,64 @@ def _timed_pair(torch, kernel, plain, reps: int):
     p2 = _cuda_ms(torch, plain, reps)
     k2 = _cuda_ms(torch, kernel, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _dense_inputs(torch, dcfg, params, st):
+    """K4's inputs on ``st`` as the dense pass builds them: the state
+    sorted by tile key, then ``dense_prep``.  Returns (sorted state, feat,
+    tile_start, the live rows' padded output rows, max tile occupancy);
+    raises if a column holds more than ``col_cap`` rows."""
+    from rmf_crowdsim_tpu_torch.core.step import payload_sort_by_key
+    from rmf_crowdsim_tpu_torch.models.highlevel import ParityVelocity
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
+
+    st, _, key = payload_sort_by_key(
+        st, zb.tile_key(dcfg, st.position, st.alive),
+        torch.zeros_like(st.alive))
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat, tile_start, dbpos, n_col_over, occ = zd.dense_prep(
+        dcfg, key, st.position, st.velocity, st.preferred_vel, rec,
+        st.priority, st.eyesight, rec, st.alive)
+    if int(n_col_over):
+        raise AssertionError(f"K4: {int(n_col_over)} rows past col_cap")
+    rows = dbpos[st.alive & (dbpos < dcfg.slots)].long()
+    return st, feat, tile_start, rows, int(occ)
+
+
+def _dense_clusters(torch, dcfg, st, tile_start, geo):
+    """The tile-sorted ``st`` (``tile_start`` its tiles' first rows) with
+    two crowds, each made of the first rows of one column so that no
+    column grows.  ``geo.stage_rows // 2 + 1`` rows of column ``tx // 4``
+    spread over the K4 block run that holds tile row ``ty // 2`` (about
+    three times the bench density), so each block that stages those
+    tiles holds more rows than its stage and reads them in place; and
+    ``K4_REWALK_CLUSTER`` rows of column ``tx // 4 + 10`` in a 1.4 m disc
+    in tile row ``ty // 2``, each with more neighbours than K4's 32-entry
+    list, in blocks that fit their stage."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    ts = dcfg.tile_size
+    pos = st.position.clone()
+
+    c = dcfg.tx // 4
+    k = geo.stage_rows // 2 + 1
+    t0 = dcfg.ty // 2 // geo.tiles * geo.tiles
+    t1 = min(t0 + geo.tiles, dcfg.ty)
+    lo = torch.tensor([dcfg.offset[0] + c * ts, dcfg.offset[1] + t0 * ts])
+    size = torch.tensor([ts, (t1 - t0) * ts])
+    a = int(tile_start[c * dcfg.ty])
+    pos[a:a + k] = (lo + size * torch.rand((k, 2), generator=gen)).to(pos)
+
+    c += 10
+    k = K4_REWALK_CLUSTER
+    centre = torch.tensor([dcfg.offset[0] + (c + 0.5) * ts,
+                           dcfg.offset[1] + (dcfg.ty // 2 + 0.5) * ts])
+    ang = 2 * torch.pi * torch.rand(k, generator=gen)
+    r = 0.7 * torch.sqrt(torch.rand(k, generator=gen))
+    a = int(tile_start[c * dcfg.ty])
+    pos[a:a + k] = (centre + torch.stack([r * torch.cos(ang),
+                                          r * torch.sin(ang)], 1)).to(pos)
+    return st.replace(position=pos)
 
 
 def _drive(torch, name, rollout, params, st, kernels, required, absent,
@@ -145,8 +207,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from rmf_crowdsim_tpu_torch import scenes
-    from rmf_crowdsim_tpu_torch.core.step import payload_sort_by_key
-    from rmf_crowdsim_tpu_torch.models.highlevel import ParityVelocity
     from rmf_crowdsim_tpu_torch.ops import pack, spill
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
     from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
@@ -395,28 +455,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # K4 at the 1M bench grid_dense shapes.
-    dconfig = scenes.bench_config(N_MAIN, backend="grid_dense")
-    dcfg = zd.DenseConfig.create(
-        dconfig.grid.width, dconfig.grid.height, dconfig.grid.offset,
-        dconfig.max_eyesight, N_MAIN, tile_size=dconfig.bucket_tile_size,
-        col_headroom=dconfig.dense_col_headroom)
+    dcfg = scenes.bench_dense_config(N_MAIN)
+    geo = zd.k4_geometry(dcfg, N_MAIN)
     rollout, params, st = scenes.build_bench(N_MAIN, backend="grid_dense",
                                              device=dev, hotspot=True)
     st, _ = rollout(params, st, DT, 2)
-    st, _, key = payload_sort_by_key(
-        st, zb.tile_key(dcfg, st.position, st.alive),
-        torch.zeros_like(st.alive))
-    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
-    feat, tile_start, dbpos, n_col_over, occ = zd.dense_prep(
-        dcfg, key, st.position, st.velocity, st.preferred_vel, rec,
-        st.priority, st.eyesight, rec, st.alive)
-    if int(n_col_over):
-        raise AssertionError(f"K4: {int(n_col_over)} rows past col_cap")
-    rows = dbpos[st.alive & (dbpos < dcfg.slots)].long()
+    st, feat, tile_start, rows, occ = _dense_inputs(torch, dcfg, params, st)
     err4, t4 = 0.0, []
     for int_prio in (True, False):
+        over = torch.zeros((2,), dtype=torch.int32, device=dev)
         out_k = zd.zanlungo_forces_dense(dcfg, zp5, feat, tile_start,
-                                         int_prio=int_prio)
+                                         int_prio=int_prio, overflow=over)
         out_p = zd.forces_dense_plain(dcfg, zp5, feat, tile_start, int_prio)
         n_forced = int(((out_p[rows] - feat[st.alive, 8:10]).abs().sum(1)
                         > 0).sum())
@@ -432,15 +481,41 @@ def main() -> int:
         b4 = rl.Bound(rl.k4_bytes(dcfg, feat),
                       rl.k4_work(dcfg, zp5, feat, tile_start).ops(int_prio))
         t4.append((ms, pms, b4))
+        n_rewalk, n_inplace = over.tolist()
         print(f"phase 3 K4 zanlungo_dense int_prio={int_prio}: "
               f"{rows.shape[0]} live rows ({n_forced} with forces) in "
               f"{dcfg.slots} padded rows ({dcfg.tx} columns of "
-              f"{dcfg.col_cap}), max tile occupancy {int(occ)}; max abs "
-              f"err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
+              f"{dcfg.col_cap}), max tile occupancy {occ}; {geo}; "
+              f"{n_rewalk} list overflows, {n_inplace} blocks in place; "
+              f"max abs err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
               f"{pms:.3f} ms, {bound_text(b4, ms)}", flush=True)
     results["zanlungo_dense"] = dict(err=err4, ms=t4[0][0],
                                      plain_ms=t4[0][1], bound=t4[0][2])
-    del rollout, params, st, feat, out_k, out_p
+
+    # K4's two exact detours on the card: the same state with two crowds
+    # (_dense_clusters), one past the stage, one past the list.
+    hot = _dense_clusters(torch, dcfg, st, tile_start, geo)
+    hot, feat, tile_start, rows, occ = _dense_inputs(torch, dcfg, params, hot)
+    detours = [0, 0]
+    for int_prio in (True, False):
+        over = torch.zeros((2,), dtype=torch.int32, device=dev)
+        out_k = zd.zanlungo_forces_dense(dcfg, zp5, feat, tile_start,
+                                         int_prio=int_prio, overflow=over)
+        out_p = zd.forces_dense_plain(dcfg, zp5, feat, tile_start, int_prio)
+        torch.testing.assert_close(out_k[rows], out_p[rows], rtol=TOL,
+                                   atol=TOL)
+        e = (out_k[rows] - out_p[rows]).abs().max().item()
+        counts = over.tolist()
+        detours = [a + b for a, b in zip(detours, counts)]
+        print(f"phase 3 K4 detours int_prio={int_prio}: crowds of "
+              f"{geo.stage_rows // 2 + 1} and {K4_REWALK_CLUSTER} rows, max "
+              f"tile occupancy {occ}; list overflows (re-walked queries) "
+              f"{counts[0]}, blocks in place {counts[1]}; max abs err "
+              f"{e:.3g} (tol {TOL})", flush=True)
+    if min(detours) == 0:
+        raise AssertionError(f"K4: a detour never ran on the card (list "
+                             f"overflows, blocks in place: {detours})")
+    del rollout, params, st, hot, feat, out_k, out_p
     torch.cuda.empty_cache()
 
     # ---- phase 4: gates against brute ----------------------------------

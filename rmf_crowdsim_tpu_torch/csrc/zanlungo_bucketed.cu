@@ -72,6 +72,7 @@
 
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
 #include "zanlungo_pair.cuh"
 
 namespace crowdsim {
@@ -87,10 +88,6 @@ struct Layout {
   size_t stage_off, ballot_off, prefix_off, list_off, qslot_off, count_off;
   size_t bytes;
 };
-
-__host__ __device__ __forceinline__ size_t align16(size_t x) {
-  return (x + 15) & ~size_t(15);
-}
 
 __host__ __device__ __forceinline__ Layout make_layout(int T, int bucket,
                                                        int threads,
@@ -355,39 +352,18 @@ static cudaError_t check_geometry(int bucket, int T, int threads, int n_sp) {
   return cudaSuccess;
 }
 
-// Opts a kernel into the SM's whole shared memory, once per device: the
-// carveout (three blocks of the bench geometry, ~70 KB each, share an SM)
-// and the largest dynamic size a block may take.
-template <bool INT_PRIO, bool SPILL>
-static cudaError_t configure_once() {
-  static std::atomic<unsigned> done{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  auto kernel = zanlungo_bucketed_kernel<INT_PRIO, SPILL>;
-  int max_smem = 0;
-  e = cudaDeviceGetAttribute(&max_smem,
-                             cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return e;
-}
-
+// The kernel opts into the SM's whole shared memory once per device
+// (three blocks of the bench geometry, ~70 KB each, share an SM).
 template <bool INT_PRIO, bool SPILL>
 static cudaError_t launch(const float* zp5, const float* packed_t,
                           const float* packed_T, const int* sflag,
                           const float* sp_T, float* out, int* overflow,
                           int tx, int ty, int bucket, int T, int threads,
                           int sub_tiles, int n_sp, cudaStream_t stream) {
-  cudaError_t e = configure_once<INT_PRIO, SPILL>();
+  static std::atomic<unsigned> configured{0};
+  cudaError_t e = opt_in_shared_memory(
+      reinterpret_cast<const void*>(zanlungo_bucketed_kernel<INT_PRIO, SPILL>),
+      configured);
   if (e != cudaSuccess) return e;
   const int runs = (ty + T - 1) / T;
   const size_t smem = make_layout(T, bucket, threads, SPILL ? n_sp : 0).bytes;

@@ -32,15 +32,12 @@ from typing import Tuple
 import torch
 
 from .zanlungo_bucketed import (
-    NUM_CAND, NUM_F, POS_SENTINEL, ROW_ID, candidate_features, pair_mask,
-    pair_velocities, query_features, zparams5,
+    NUM_CAND, NUM_F, POS_SENTINEL, ROW_ID, SMEM_LIMIT, _align16,
+    candidate_features, pair_mask, pair_velocities, query_features, zparams5,
 )
 
 # Row 13 carries the query's sort-time tile row (zanlungo_dense.py:99).
 ROW_TCY = 13
-
-# Query rows per K4 block (one thread each).
-K4_ROWS_PER_BLOCK = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,16 +112,15 @@ def dense_prep(cfg: DenseConfig, key_sorted, position, velocity,
     n_col_over = torch.clamp(col_len - cap, min=0).sum(dtype=i32)
     max_occ = (tile_start[1:] - tile_start[:-1]).max().to(i32)
 
-    # Rank in column: a running max over column-change marks (the JAX
-    # associative_scan, zanlungo_dense.py:215-226).
+    # Rank in column: the keys are sorted, so a column's first row is its
+    # col_start entry, and one gather gives what the JAX package's running
+    # max over column-change marks gives (zanlungo_dense.py:215-226; the
+    # scan avoids a TPU gather floor).  col_start has tx + 1 entries, so
+    # dead-keyed rows (col == tx) index it too.
     idx = torch.arange(n, dtype=i32, device=dev)
     col = torch.clamp(torch.div(key_sorted, ty, rounding_mode="floor"), 0,
                       tx)
-    changed = torch.ones((n,), dtype=torch.bool, device=dev)
-    changed[1:] = col[1:] != col[:-1]
-    cs_row = torch.cummax(torch.where(changed, idx, torch.full_like(idx, -1)),
-                          0).values
-    local = idx - cs_row
+    local = idx - col_start[col.long()]
     in_cap = (col < tx) & (local < cap)
     bpos = torch.where(in_cap, col * cap + local,
                        torch.full_like(idx, cfg.slots))
@@ -178,6 +174,80 @@ def _query_windows(cfg: DenseConfig, feat, tile_start):
     return rows, c * cap + local, lo, hi
 
 
+# Tile rows of one column per K4 block: at the 1M bench scene (~17.5 rows
+# a tile) a block takes ~260 queries and stages ~890 candidate rows, and
+# the halo costs 17/15 reads of the rows.
+K4_TILES_PER_BLOCK = 15
+
+# Entries of a query's neighbour list in K4 (LIST_CAP in
+# csrc/zanlungo_dense.cu); a query with more hits re-walks its window.
+K4_LIST_CAP = 32
+
+# Most threads of a K4 block (MAX_THREADS in the .cu).
+K4_MAX_THREADS = 512
+
+# Most staged rows a block takes by default: 128 KB of stage, so a block
+# of K4_MAX_THREADS still fits the H100's shared memory.  The kernel takes
+# up to 65,536 (uint16 staged indices).
+K4_MAX_STAGE = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class K4Geometry:
+    """Launch geometry of K4: ``blocks`` runs of ``tiles`` tile rows of
+    one column, ``threads`` per block, ``stage_rows`` staged candidate
+    rows, ``smem_bytes`` of dynamic shared memory."""
+
+    tiles: int
+    threads: int
+    stage_rows: int
+    blocks: int
+    smem_bytes: int
+
+
+def _ceil32(x: float) -> int:
+    return int(math.ceil(x / 32.0)) * 32
+
+
+def k4_smem_bytes(stage_rows: int, threads: int) -> int:
+    """K4's shared memory a block, as ``dense_layout`` in
+    ``csrc/zanlungo_dense.cu`` lays it out: the stage, two float4 arrays
+    [stage_rows]; then the lists [K4_LIST_CAP, threads] uint16."""
+    return _align16(_align16(32 * stage_rows) + 2 * K4_LIST_CAP * threads)
+
+
+def k4_geometry(cfg: DenseConfig, n_rows: int,
+                tiles_per_block: int = K4_TILES_PER_BLOCK,
+                stage_rows: int | None = None) -> K4Geometry:
+    """K4's launch geometry for ``n_rows`` sorted rows.  With ``m`` =
+    ``n_rows / n_tiles`` rows a tile: threads cover 1.125 times a run's
+    mean queries (``tiles * m``), the stage 1.25 times its mean candidate
+    rows (``3 (tiles + 2) m``, at most ``K4_MAX_STAGE`` unless
+    ``stage_rows`` is given), each rounded up to 32; a block whose ranges
+    exceed the stage reads them in place, exactly.  The kernel lays out
+    its shared memory itself; ``smem_bytes`` mirrors that layout
+    (:func:`k4_smem_bytes`) so that a block the card cannot hold is
+    refused here, before the launch.  Raises if the block needs more than
+    the H100's 232,448 bytes."""
+    tiles = max(1, min(int(tiles_per_block), cfg.ty))
+    m = n_rows / cfg.n_tiles
+    threads = min(K4_MAX_THREADS, max(64, _ceil32(1.125 * tiles * m)))
+    if stage_rows is None:
+        stage_rows = min(K4_MAX_STAGE,
+                         max(256, _ceil32(1.25 * 3 * (tiles + 2) * m)))
+    if not 1 <= stage_rows <= 65536:
+        raise ValueError(f"K4: {stage_rows} staged rows overflow the "
+                         f"kernel's uint16 indices")
+    smem = k4_smem_bytes(stage_rows, threads)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K4: {smem} bytes of shared memory per block "
+                         f"({stage_rows} staged rows, {threads} threads) "
+                         f"exceed {SMEM_LIMIT}")
+    blocks = cfg.tx * -(-cfg.ty // tiles)
+    return K4Geometry(tiles=tiles, threads=threads, stage_rows=stage_rows,
+                      blocks=blocks, smem_bytes=smem)
+
+
 def forces_dense_plain(cfg: DenseConfig, zp5, feat, tile_start, int_prio,
                        chunk_pairs: int = 1 << 22):
     """Plain version of K4: every query row against its candidate row
@@ -208,26 +278,37 @@ def forces_dense_plain(cfg: DenseConfig, zp5, feat, tile_start, int_prio,
 
 def zanlungo_forces_dense(cfg: DenseConfig, zp5: torch.Tensor,
                           feat: torch.Tensor, tile_start: torch.Tensor,
-                          int_prio: bool = False) -> torch.Tensor:
+                          int_prio: bool = False,
+                          overflow: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """K4: [tx * col_cap, 2] f32 velocities in padded column order
     (replaces zanlungo_dense.py:878 ``zanlungo_forces_dense``); rows that
     hold no query are undefined (callers gather through ``bpos``).  CPU
     tensors take the plain version; CUDA tensors launch
-    ``csrc/zanlungo_dense.cu``."""
+    ``csrc/zanlungo_dense.cu`` with :func:`k4_geometry`.  ``overflow``: an
+    optional [2] int32 CUDA tensor to which the kernel adds the queries
+    that overflow their neighbour list and re-walk their window, and the
+    blocks whose candidates exceed the stage and are read in place (a
+    measurement aid; the result is exact either way)."""
     if feat.device.type == "cpu":
         return forces_dense_plain(cfg, zp5, feat, tile_start, int_prio)
     from ..utils import cuda_build
 
+    counters = {}
+    if overflow is not None:
+        counters = dict(overflow=(overflow, torch.int32, (2,)))
     cuda_build.check_tensors(
         "zanlungo_forces_dense",
         zp5=(zp5, torch.float32, (5,)),
         feat=(feat, torch.float32, (feat.shape[0], NUM_F)),
         tile_start=(tile_start, torch.int32, (cfg.n_tiles + 1,)),
+        **counters,
     )
+    geo = k4_geometry(cfg, feat.shape[0])
     out = torch.empty((cfg.slots, 2), dtype=torch.float32, device=feat.device)
     cuda_build.launch("crowdsim_zanlungo_dense", zp5, feat, tile_start, out,
-                      cfg.tx, cfg.ty, cfg.col_cap, K4_ROWS_PER_BLOCK,
-                      int(bool(int_prio)))
+                      overflow, cfg.tx, cfg.ty, cfg.col_cap, geo.tiles,
+                      geo.threads, geo.stage_rows, int(bool(int_prio)))
     zanlungo_forces_dense.launches += 1
     return out
 

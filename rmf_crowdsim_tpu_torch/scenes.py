@@ -18,6 +18,7 @@ from .core.step import SimParams, build_rollout, payload_sort_by_key
 from .models.highlevel import ParityVelocity
 from .models.local import Zanlungo
 from .ops import zanlungo_bucketed as zb
+from .ops.zanlungo_dense import DenseConfig
 
 HOTSPOT_AGENTS = 48
 
@@ -115,6 +116,16 @@ def bench_bucket_config(n_agents: int) -> zb.BucketConfig:
         c.grid.width, c.grid.height, c.grid.offset, c.max_eyesight,
         bucket=c.bucket_capacity, strip_tiles=c.strip_tiles,
         sub_tiles=c.sub_tiles, tile_size=c.bucket_tile_size)
+
+
+def bench_dense_config(n_agents: int) -> DenseConfig:
+    """The dense layout of the ``grid_dense`` bench scene, as
+    ``build_step`` derives it."""
+    c = bench_config(n_agents, backend="grid_dense")
+    return DenseConfig.create(
+        c.grid.width, c.grid.height, c.grid.offset, c.max_eyesight,
+        c.capacity, tile_size=c.bucket_tile_size,
+        col_headroom=c.dense_col_headroom)
 
 
 def bench_bucketed(n_agents: int, device="cuda", steps: int = 2,

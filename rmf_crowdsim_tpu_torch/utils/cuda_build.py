@@ -41,11 +41,11 @@ NVCC_FLAGS = (
 # C entry points: one code per argument before the trailing stream
 # ("p" = device pointer, None for NULL; "i" = int).
 SIGNATURES = {
-    "crowdsim_pack_rows": "ppiipp",
+    "crowdsim_pack_rows": "pppiipp",
     "crowdsim_zanlungo_bucketed": "pppppiiiiii",
     "crowdsim_zanlungo_bucketed_spill": "pppppppiiiiiiii",
     "crowdsim_spill_window": "pppppppiiiii",
-    "crowdsim_zanlungo_dense": "ppppiiiii",
+    "crowdsim_zanlungo_dense": "pppppiiiiiii",
 }
 
 

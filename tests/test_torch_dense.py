@@ -191,6 +191,28 @@ def test_dense_prep_bitwise_column_overflow():
     assert n_over == 900 - 512
 
 
+@pytest.mark.parametrize("empty", ["edge_columns", "middle_column"])
+def test_dense_prep_bitwise_empty_columns(empty):
+    """Empty tile columns at the world's edges or inside it, with dead
+    rows keyed ``n_tiles`` sorted behind the last column: the column rank
+    taken by a gather of ``col_start`` gives the JAX scan's ``bpos``."""
+    jcfg, tcfg = cfgs(width=24.0, height=24.0, offset=(0.0, 0.0),
+                      max_eyesight=3.0, capacity=200)
+    scene = random_scene(13, 200, 24.0, 3.0)
+    pos = scene[0].copy()
+    if empty == "edge_columns":          # x in [3, 21): columns 0 and 7
+        pos[:, 0] = 3.0 + pos[:, 0] * np.float32(0.75)
+    else:                                # column 3 moves into column 4
+        pos[:, 0] = np.where((pos[:, 0] >= 9.0) & (pos[:, 0] < 12.0),
+                             pos[:, 0] + 3.0, pos[:, 0])
+    scene, key_s = sort_scene(jcfg, (pos,) + scene[1:])
+    col_len = np.diff(np.searchsorted(key_s, np.arange(0, jcfg.n_tiles + 1,
+                                                       jcfg.ty)))
+    assert (col_len == 0).sum() == (2 if empty == "edge_columns" else 1)
+    assert (key_s == jcfg.n_tiles).any()
+    _assert_prep_bitwise(jcfg, tcfg, scene, key_s)
+
+
 @pytest.fixture(scope="module")
 def jax_dense_kernel():
     """K4's JAX reference in interpret mode, once per int_prio mode, on a
