@@ -9,20 +9,23 @@ repository beside it).  Phases, each printing its own line:
 2. build: compile the CUDA kernels from ``rmf_crowdsim_tpu_torch/csrc``;
 3. every kernel against its plain PyTorch version on the card, at the
    1M-agent bench scene's shapes (with the 48-agent hotspot): K3 (pack)
-   bitwise, K1 (force), K2 (spill window), K1b (force with the fused
-   spill segment) and K4 (the dense ``grid_dense`` force kernel) to
-   rtol = atol = 2e-4 on live rows with integer priorities on and off;
-   times of both, each kernel's bound (``utils/roofline.py``: the bytes
-   and f32 operations that this run's inputs need) and its share of it;
-   K1b bitwise K1 on unflagged slots; the 1M fused-spill pass against
-   the spill-patch pass on the same state, exactly; then K1 and K1b
-   against their plain versions where queries overflow the neighbour
-   list (the 1M scene one step in, while the hotspot is packed, and a
-   4,096-agent scene with the hotspot on a tile corner), each kernel's
-   overflow count > 0 over them, so the re-walk runs on the card; K4
-   likewise on the 1M dense state with two crowds added, its list
-   overflows and its blocks that read their candidates in place both
-   > 0;
+   bitwise, K1 (force), K2 (the spill repair: window rows, own rows and
+   the velocity rows it writes, and with its windows off), K1b (force
+   with the fused spill segment) and K4 (the dense ``grid_dense`` force
+   kernel) to rtol = atol = 2e-4 on live rows with integer priorities
+   on and off; times of both (K2's launch is shorter than its
+   wrapper's host time, so its kernel time is the profiler's device
+   time), each kernel's bound
+   (``utils/roofline.py``: the bytes and f32 operations that this run's
+   inputs need) and its share of it; K1b bitwise K1 on unflagged slots;
+   the 1M fused-spill pass against the spill-patch pass on the same
+   state, exactly; then K1, K1b and K2 against their plain versions
+   where queries overflow the neighbour list (the 1M scene one step in,
+   while the hotspot is packed, and a 4,096-agent scene with the hotspot
+   on a tile corner), each kernel's overflow count > 0 over them, so the
+   re-walk runs on the card; K4 likewise on the 1M dense state with two
+   crowds added, its list overflows and its blocks that read their
+   candidates in place both > 0;
 4. gates (the port of bench.py's ``compiled_parity_check``): the
    4,096-agent bench scene with the 48-agent hotspot, 5 steps at
    dt = 1/60, against ``brute`` by uid to 2e-4 with zero truncation:
@@ -33,7 +36,9 @@ repository beside it).  Phases, each printing its own line:
    (``grid_pallas`` with ``fused_spills=True``).  Each: a warm-up, then
    20 timed steps with the launch counts set to 0 just before and read
    just after; zero truncation, finite state, no agent lost, and every
-   kernel of the path launched; then its host syncs per step, counted.
+   kernel of the path launched; then its host syncs per step, counted,
+   and its kernel launches and device time per step (``torch.profiler``
+   over 3 steps).
 
 Then one JSON line of per-kernel results (``library_ms`` is null for all
 five: no single PyTorch call computes any of them), the card's line, and
@@ -67,6 +72,28 @@ def _cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Mean device time per call of ``fn`` spent in the kernels whose name
+    holds ``kernel``, over ``reps`` calls under ``torch.profiler`` (after
+    one warm-up call): the kernel's own time where its launch is shorter
+    than the host time of the call that makes it."""
+    from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    top = device_kernels(run, reps, top=1 << 30)["top"]
+    ms = sum(ms for ms, _, name in top if kernel in name)
+    if ms <= 0.0:
+        raise AssertionError(f"no device time of {kernel} in the profile")
+    return ms
 
 
 def _timed_pair(torch, kernel, plain, reps: int):
@@ -137,13 +164,53 @@ def _dense_clusters(torch, dcfg, st, tile_start, geo):
     return st.replace(position=pos)
 
 
+def _k2_check(torch, spill, zb, cfg, zp5, packed_t, packed_T, rows, sp_tcx,
+              sp_tcy, base, int_prio, overflow):
+    """K2 against its plain version on one state, each writing into its
+    own copy of ``base`` [N, 2]: the live window rows, the own rows and
+    the whole velocity array, to ``TOL``; then with the windows off, where
+    only the own rows may land.  Returns (max abs err, live window
+    queries, velocity rows written)."""
+    b9 = 9 * cfg.bucket
+    vel_k, vel_p = base.clone(), base.clone()
+    out_k = spill.spill_window(cfg, zp5, packed_t, packed_T, rows, sp_tcx,
+                               sp_tcy, vel_k, int_prio=int_prio,
+                               overflow=overflow)
+    out_p = spill.spill_window_plain(cfg, zp5, packed_t, packed_T, rows,
+                                     sp_tcx, sp_tcy, vel_p, int_prio)
+    valid = rows[:, zb.ROW_ID] >= 0
+    q_slots = spill.window_query_slots(cfg, sp_tcx, sp_tcy)
+    q_live = valid[:, None] & (packed_t[q_slots, zb.ROW_ID] >= 0)
+    off = torch.zeros((), dtype=torch.bool, device=base.device)
+    vel_ko, vel_po = base.clone(), base.clone()
+    spill.spill_window(cfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy,
+                       vel_ko, int_prio=int_prio, windows=off)
+    spill.spill_window_plain(cfg, zp5, packed_t, packed_T, rows, sp_tcx,
+                             sp_tcy, vel_po, int_prio, windows=off)
+    err = 0.0
+    for k, p in ((out_k[:, :b9][q_live], out_p[:, :b9][q_live]),
+                 (out_k[valid, b9], out_p[valid, b9]),
+                 (vel_k, vel_p), (vel_ko, vel_po)):
+        torch.testing.assert_close(k, p, rtol=TOL, atol=TOL)
+        if k.numel():
+            err = max(err, (k - p).abs().max().item())
+    n_own = int(((vel_ko != base).any(1)).sum())
+    if n_own > int(valid.sum()):
+        raise AssertionError(f"K2 with windows off wrote {n_own} rows for "
+                             f"{int(valid.sum())} spills")
+    return err, int(q_live.sum()), int(((vel_p != base).any(1)).sum())
+
+
 def _drive(torch, name, rollout, params, st, kernels, required, absent,
            card, n_steps=20):
     """One 1M path of phase 5: warm-up, ``n_steps`` timed steps with every
     launch count of ``kernels`` ({name: wrapper}) set to 0 just before
     and read just after, checks (each kernel named in ``required``
-    launched, none in ``absent``), then the host syncs per step.  Returns
+    launched, none in ``absent``), then the host syncs per step and, over
+    3 steps under the profiler, the kernel launches per step.  Returns
     the launch counts."""
+    from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
+
     st, _ = rollout(params, st, DT, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -194,6 +261,15 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
           f"steps ({per_step:.2f} per step) at {sites}", flush=True)
     if per_step > 1:
         raise AssertionError(f"{name} makes {per_step} host syncs per step")
+
+    def run():
+        rollout(params, st, DT, n_sync_steps)
+        torch.cuda.synchronize()
+
+    prof = device_kernels(run, n_sync_steps)
+    print(f"phase 5 {name} profile: {prof['launches_per_step']:.1f} kernel "
+          f"launches/step, device busy {prof['device_busy_ms']:.3f} ms/step "
+          f"({n_sync_steps} steps under torch.profiler)", flush=True)
     return launches
 
 
@@ -285,51 +361,53 @@ def main() -> int:
     results["zanlungo_bucketed"] = dict(err=err1, ms=t1[0][0],
                                         plain_ms=t1[0][1], bound=t1[0][2])
 
-    c_sp, sp, sp_tcx, sp_tcy = spill.spill_rows(
+    c_sp, rows, sp_tcx, sp_tcy = spill.spill_rows(
         bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
         st.eyesight, st.alive, rec, bucket_pos, config.spill_capacity)
     n_spill = int(c_sp.count)
     if n_spill == 0:
         raise AssertionError("the 1M hotspot scene has no spills")
-    sp_T = spill.spill_candidates(sp)
-    q_slots = spill.window_query_slots(bcfg, sp_tcx, sp_tcy)
-    q_live = c_sp.valid[:, None] & (packed_t[q_slots, zb.ROW_ID] >= 0)
     err2, t2 = 0.0, []
     for int_prio in (True, False):
-        out_k = spill.spill_window(bcfg, zp5, packed_t, packed_T, sp_T,
-                                   sp_tcx, sp_tcy, int_prio=int_prio)
-        out_p = spill.spill_window_plain(bcfg, zp5, packed_t, packed_T,
-                                          sp_T, sp_tcx, sp_tcy, int_prio)
-        torch.testing.assert_close(out_k[q_live], out_p[q_live], rtol=TOL,
-                                   atol=TOL)
-        e = (out_k[q_live] - out_p[q_live]).abs().max().item()
+        over = torch.zeros((1,), dtype=torch.int32, device=dev)
+        e, n_live_q, n_written = _k2_check(torch, spill, zb, bcfg, zp5,
+                                           packed_t, packed_T, rows, sp_tcx,
+                                           sp_tcy, rec, int_prio, over)
         err2 = max(err2, e)
-        ms, pms = _timed_pair(
-            torch, lambda: spill.spill_window(
-                bcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
-                int_prio=int_prio),
-            lambda: spill.spill_window_plain(
-                bcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
+        vel_k, vel_p = rec.clone(), rec.clone()
+
+        def k2():
+            spill.spill_window(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
+                               sp_tcy, vel_k, int_prio=int_prio)
+
+        call_ms, pms = _timed_pair(
+            torch, k2, lambda: spill.spill_window_plain(
+                bcfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy, vel_p,
                 int_prio), 10)
-        b2 = rl.Bound(rl.k2_bytes(bcfg, zp5, sp_T, sp_tcx, sp_tcy),
-                      rl.k2_work(bcfg, zp5, packed_t, packed_T, sp_T,
-                                 sp_tcx, sp_tcy).ops(int_prio))
+        ms = _device_ms(torch, k2, 20, "spill_window_kernel")
+        b2 = rl.Bound(rl.k2_bytes(bcfg, zp5, packed_t, rows, sp_tcx, sp_tcy,
+                                  vel_k),
+                      rl.k2_work(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
+                                 sp_tcy).ops(int_prio))
         t2.append((ms, pms, b2))
         print(f"phase 3 K2 spill_window int_prio={int_prio}: {n_spill} "
-              f"spills in {config.spill_capacity} slots, "
-              f"{int(q_live.sum())} live window queries; max abs err "
-              f"{e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
-              f"{pms:.3f} ms, {bound_text(b2, ms)}", flush=True)
+              f"spills in {config.spill_capacity} slots, {n_live_q} live "
+              f"window queries, {n_written} velocity rows written; "
+              f"{int(over.item())} list overflows; window rows, own rows, "
+              f"written rows and windows off: max abs err {e:.3g} (tol "
+              f"{TOL}); kernel {ms:.4f} ms on the device (profiler; "
+              f"{call_ms:.4f} ms a call on CUDA events, the wrapper's host "
+              f"time), plain {pms:.3f} ms, {bound_text(b2, ms)}",
+              flush=True)
     results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1],
                                    bound=t2[0][2])
 
-    # K1b: the fused-spill discovery of zanlungo_fused on this state.
-    c_f, sp_f, f_tcx, f_tcy = spill.spill_rows(
-        bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
-        st.eyesight, st.alive, rec, bucket_pos,
-        min(zb.FUSED_SPILL_LANES, config.spill_capacity))
-    sflag = spill.spill_flags(bcfg, f_tcx, f_tcy, c_f.valid)
-    sp_fT = spill.spill_candidates(sp_f)
+    # K1b: its spill plane is the first rows of the spill list, as
+    # zanlungo_fused takes it.
+    n_f = min(zb.FUSED_SPILL_LANES, config.spill_capacity)
+    sflag = spill.spill_flags(bcfg, sp_tcx[:n_f], sp_tcy[:n_f],
+                              c_sp.valid[:n_f])
+    sp_fT = spill.spill_candidates(rows[:n_f])
     n_flagged = int((sflag > 0).sum())
     if n_flagged == 0:
         raise AssertionError("K1b: no sub-block is flagged")
@@ -363,7 +441,7 @@ def main() -> int:
                                    sp_fT).ops(int_prio))
         t1b.append((ms, pms, b1b))
         print(f"phase 3 K1b zanlungo_bucketed_spill int_prio={int_prio}: "
-              f"{int(c_f.count)} spills, {n_flagged} flagged sub-blocks "
+              f"{n_spill} spills, {n_flagged} flagged sub-blocks "
               f"({int(flagged.sum())} slots, {n_changed} changed vs K1, "
               f"the rest bitwise K1); {n_over} list overflows; "
               f"max abs err {e:.3g} (tol {TOL}); kernel {ms:.3f} ms, plain "
@@ -405,7 +483,7 @@ def main() -> int:
     gcfg = scenes.bench_bucket_config(N_GATE)
     corner = (gcfg.offset[0] + gcfg.tile_size * (gcfg.tx // 2) - 1.0,
               gcfg.offset[1] + gcfg.tile_size * (gcfg.ty // 2) - 1.0)
-    rewalked = {"K1": 0, "K1b": 0}
+    rewalked = {"K1": 0, "K1b": 0, "K2": 0}
     for label, n, scene in (
             (f"{N_MAIN}-agent hotspot, 1 step", N_MAIN, {}),
             (f"{N_GATE}-agent corner hotspot ({corner[0]:.2f}, "
@@ -416,12 +494,14 @@ def main() -> int:
         w_t, w_T, _ = pack.pack_rows(wfeat, wbpos, wcfg.slots)
         w_live = w_T[zb.ROW_ID] >= 0
         wzp5 = zb.zparams5(wparams.lp[0])
-        c_w, sp_w, w_tcx, w_tcy = spill.spill_rows(
+        c_w, rows_w, w_tcx, w_tcy = spill.spill_rows(
             wcfg, wst.position, wst.velocity, wrec, wst.preferred_vel,
             wst.priority, wst.eyesight, wst.alive, wrec, wbucket,
-            min(zb.FUSED_SPILL_LANES, wconfig.spill_capacity))
-        w_flag = spill.spill_flags(wcfg, w_tcx, w_tcy, c_w.valid)
-        w_spT = spill.spill_candidates(sp_w)
+            wconfig.spill_capacity)
+        n_wf = min(zb.FUSED_SPILL_LANES, wconfig.spill_capacity)
+        w_flag = spill.spill_flags(wcfg, w_tcx[:n_wf], w_tcy[:n_wf],
+                                   c_w.valid[:n_wf])
+        w_spT = spill.spill_candidates(rows_w[:n_wf])
         for int_prio in (True, False):
             counts = {}
             for name, kernel, plain in (
@@ -441,12 +521,18 @@ def main() -> int:
                                            rtol=TOL, atol=TOL)
                 e = (out_k[w_live] - out_p[w_live]).abs().max().item()
                 counts[name] = (int(over.item()), e)
+            over = torch.zeros((1,), dtype=torch.int32, device=dev)
+            e, _, _ = _k2_check(torch, spill, zb, wcfg, wzp5, w_t, w_T,
+                                rows_w, w_tcx, w_tcy, wrec, int_prio, over)
+            counts["K2"] = (int(over.item()), e)
+            for name in rewalked:
                 rewalked[name] += counts[name][0]
             print(f"phase 3 re-walk, {label}, int_prio={int_prio}: "
                   f"{int(c_w.count)} spills; list overflows (re-walked "
-                  f"queries) K1 {counts['K1'][0]}, K1b {counts['K1b'][0]}; "
-                  f"max abs err K1 {counts['K1'][1]:.3g}, K1b "
-                  f"{counts['K1b'][1]:.3g} (tol {TOL})", flush=True)
+                  f"queries) K1 {counts['K1'][0]}, K1b {counts['K1b'][0]}, "
+                  f"K2 {counts['K2'][0]}; max abs err K1 "
+                  f"{counts['K1'][1]:.3g}, K1b {counts['K1b'][1]:.3g}, K2 "
+                  f"{counts['K2'][1]:.3g} (tol {TOL})", flush=True)
         del wparams, wst, wrec, wfeat, w_t, w_T, out_k, out_p
     for name, count in rewalked.items():
         if count == 0:
@@ -566,7 +652,7 @@ def main() -> int:
              "zanlungo_bucketed_spill")),
         "path B grid_pallas fused_spills": (
             dict(backend="grid_pallas", fused_spills=True),
-            ("pack_rows", "zanlungo_bucketed_spill"),
+            ("pack_rows", "zanlungo_bucketed_spill", "spill_window"),
             ("zanlungo_bucketed", "zanlungo_dense")),
     }
     launches = {}

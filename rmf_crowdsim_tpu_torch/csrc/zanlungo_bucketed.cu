@@ -56,6 +56,8 @@
 //      `overflow` counts such queries.
 //   3. Divergence follows the longest list in a warp (~10-15 at the bench
 //      density), not the union of the lanes' windows.
+// The compaction helpers and the list passes are in neighbour_list.cuh,
+// which K2 (spill_window.cu) shares.
 // K1b stages the spill plane (4 KB at n_sp = 128) behind the window, only
 // in blocks that hold a flagged live query, and walks it as a fourth
 // segment after the window for flagged queries, in the list and the
@@ -72,14 +74,13 @@
 
 #include <cuda_runtime.h>
 
+#include "neighbour_list.cuh"
 #include "smem.cuh"
 #include "zanlungo_pair.cuh"
 
 namespace crowdsim {
 
-constexpr int LIST_CAP = 32;
 constexpr int MAX_THREADS = 512;
-constexpr unsigned FULL_MASK = 0xffffffffu;
 
 struct Layout {
   int cols;    // staged window slots, 3 * (T + 2) * bucket
@@ -110,39 +111,6 @@ __host__ __device__ __forceinline__ Layout make_layout(int T, int bucket,
   L.count_off = o;
   L.bytes = align16(o + sizeof(int));
   return L;
-}
-
-// Live staged slots before flat staged index i (0 <= i <= cols).
-__device__ __forceinline__ int live_before(const unsigned* ballots,
-                                           const int* prefix, int i) {
-  const int r = i & 31;
-  return prefix[i >> 5] +
-         (r ? __popc(ballots[i >> 5] & ((1u << r) - 1u)) : 0);
-}
-
-// Calls f(j) for every staged candidate j that the query's mask takes, in
-// walk order: the three column ranges [lo[k], hi[k]) of the compacted
-// window, then (K1b, flagged queries) the spill segment [sp0, sp0 + n_sp).
-// P[j] = (px, py, id, prio).
-template <class F>
-__device__ __forceinline__ void walk(const Query& q, const float4* P,
-                                     const int (&lo)[3], const int (&hi)[3],
-                                     bool spill_seg, int sp0, int n_sp,
-                                     F&& f) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-#pragma unroll 4
-    for (int j = lo[k]; j < hi[k]; ++j) {
-      const float4 p = P[j];
-      if (pair_mask(q, p.x, p.y, p.z)) f(j);
-    }
-  }
-  if (spill_seg) {
-    for (int j = sp0; j < sp0 + n_sp; ++j) {
-      const float4 p = P[j];
-      if (pair_mask(q, p.x, p.y, p.z)) f(j);
-    }
-  }
 }
 
 template <bool INT_PRIO, bool SPILL>
@@ -224,22 +192,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     if (lane == 0 && i < L.cols) ballots[i >> 5] = bal;
   }
   __syncthreads();
-  if (threadIdx.x < 32) {
-    int carry = 0;
-    for (int base = 0; base < L.chunks; base += 32) {
-      const int c = base + lane;
-      const int v = c < L.chunks ? __popc(ballots[c]) : 0;
-      int incl = v;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(FULL_MASK, incl, d);
-        if (lane >= d) incl += t;
-      }
-      if (c < L.chunks) prefix[c] = carry + incl - v;
-      carry += __shfl_sync(FULL_MASK, incl, 31);
-    }
-    if (lane == 0) prefix[L.chunks] = carry;
-  }
+  if (threadIdx.x < 32) scan_ballots(ballots, prefix, L.chunks);
   __syncthreads();
   for (int i = threadIdx.x; i < L.cols; i += blockDim.x) {
     const unsigned bal = ballots[i >> 5];
@@ -276,10 +229,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
   // 3. Each thread takes live queries: one mask pass that records the
   //    hits, then the TTC and force passes over the list.
   const Params zp = load_params(zp5);
-  const float neg_inv_fd = -1.f / zp.force_distance;
-  const float inv_mass = 1.f / zp.agent_mass;
   unsigned short* list = lists + threadIdx.x;  // entry m: list[m * threads]
-  const int stride = blockDim.x;
 
   for (int qi = threadIdx.x; qi < nq; qi += blockDim.x) {
     const int i = qslot[qi];
@@ -289,56 +239,22 @@ __global__ void __launch_bounds__(MAX_THREADS)
     const bool flagged =
         SPILL && sflag[tcx * n_sub + (tcy0 + lt) / sub_tiles] > 0;
     // Staged tiles tcy - 1 .. tcy + 1 of column k; tiles outside the world
-    // hold no live slot, so their ranges are empty.
-    int lo[3], hi[3];
+    // hold no live slot, so their ranges are empty.  Flagged queries (K1b)
+    // walk the spill segment [cols, cols + n_sp) last.
+    int lo[SPILL ? 4 : 3], hi[SPILL ? 4 : 3];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       lo[k] = live_before(ballots, prefix, k * W + lt * bucket);
       hi[k] = live_before(ballots, prefix, k * W + (lt + 3) * bucket);
     }
-
-    int n = 0;
-    walk(q, P, lo, hi, flagged, L.cols, n_sp, [&](int j) {
-      if (n < LIST_CAP) list[n * stride] = (unsigned short)j;
-      ++n;
-    });
-    const bool over = n > LIST_CAP;
-    if (over && overflow != nullptr) atomicAdd(overflow, 1);
-
-    float t_i = CUDART_INF_F;
-    auto ttc = [&](int j) {
-      const float4 p = P[j];
-      const float4 v = V[j];
-      t_i = fminf(t_i, pair_ttc(q, v.x, v.y, p.x, p.y, zp.agent_radius));
-    };
-    if (over) {
-      walk(q, P, lo, hi, flagged, L.cols, n_sp, ttc);
-    } else {
-      for (int m = 0; m < n; ++m) ttc(list[m * stride]);
+    if constexpr (SPILL) {
+      lo[3] = L.cols;
+      hi[3] = flagged ? L.cols + n_sp : L.cols;
     }
-
-    float ox = q.rx;
-    float oy = q.ry;
-    if (isfinite(t_i)) {
-      const float inv_t = 1.f / (t_i > 0.f ? t_i : 1.f);
-      float fx = 0.f;
-      float fy = 0.f;
-      auto force = [&](int j) {
-        const float4 p = P[j];
-        const float4 v = V[j];
-        pair_force<INT_PRIO>(zp, t_i, inv_t, neg_inv_fd, q, p.x, p.y, v.x,
-                             v.y, v.z, v.w, p.w, fx, fy);
-      };
-      if (over) {
-        walk(q, P, lo, hi, flagged, L.cols, n_sp, force);
-      } else {
-        for (int m = 0; m < n; ++m) force(list[m * stride]);
-      }
-      ox = q.rx + fx * inv_mass;
-      oy = q.ry + fy * inv_mass;
-    }
-    out[2 * qs] = ox;
-    out[2 * qs + 1] = oy;
+    const float2 o = list_velocity<INT_PRIO>(q, zp, P, V, lo, hi, list,
+                                             blockDim.x, overflow);
+    out[2 * qs] = o.x;
+    out[2 * qs + 1] = o.y;
   }
 }
 

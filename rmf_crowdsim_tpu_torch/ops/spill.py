@@ -1,4 +1,5 @@
-"""Exact repair of bucket overflow, and the spill-window kernel (K2).
+"""Exact repair of bucket overflow: the spill list and the spill-repair
+kernel (K2).
 
 Counterpart of the spill half of ``rmf_crowdsim_tpu/ops/zanlungo_pallas.py``
 (``spill_patch``, ``_spill_groups``, ``_spill_own_rows``, ``_spill_flags``
@@ -6,30 +7,33 @@ and ``_spill_groups_window_pallas``).
 
 Agents beyond a tile's ``bucket`` slots ("spills") are missing from the
 packed plane: they get no force output and every query within eyesight of
-one computed a wrong min TTC.  Per spill, the queries of its 3x3 tile
-block are recomputed exactly against its 5x5 window plus the whole spill
-list (K2, ``csrc/spill_window.cu``), the spills' own rows go through the
-models/local math, and the affected rows overwrite the kernel's output.
-
-Where the JAX package picks a spill-count tier and skips clean steps with
-``lax.cond`` (zanlungo_pallas.py:1583-1604), the port launches K2 once
-over all ``spill_capacity`` slots (invalid slots return at once) and
-writes the affected rows with one masked ``index_put_`` into a buffer
-whose last row is a discard row: no host read of the spill count.
-``spill_flags`` marks the force kernel's sub-blocks that the fused-spill
-path (K1b, ``zanlungo_bucketed.zanlungo_fused``) must extend.
+one computed a wrong min TTC.  :func:`spill_rows` lists the spills
+without a host read; K2 (:func:`spill_window`, ``csrc/spill_window.cu``)
+then recomputes, per spill, the queries of its 3x3 tile block against its
+5x5 window plus the whole spill list, and the spill's own row against the
+3x3 block plus the list (in the models/local math, as the JAX package
+keeps it), and writes the affected rows into the velocities itself, in
+one launch over all ``spill_capacity`` slots (invalid slots
+return at once).  Where the JAX package picks a spill-count tier and
+skips clean steps with ``lax.cond`` (zanlungo_pallas.py:1583-1604), the
+port pays one launch and no host read.  ``spill_flags`` marks the force
+kernel's sub-blocks that the fused-spill path (K1b,
+``zanlungo_bucketed.zanlungo_fused``) must extend.
 """
 
 from __future__ import annotations
+
+import types
 
 import torch
 
 from ..models.local import zanlungo_from_rows
 from .compact import compact_indices
 from .zanlungo_bucketed import (
-    NUM_F, ROW_EYE, ROW_ID, ROW_PX, ROW_PY, BucketConfig,
-    candidate_features, pair_mask, pair_velocities, query_features,
-    tile_coords, zparams5,
+    NUM_CAND, NUM_F, ROW_EYE, ROW_FX, ROW_FY, ROW_ID, ROW_PRIO, ROW_PX,
+    ROW_PY, ROW_RX, ROW_RY, ROW_SPX, ROW_SPY, ROW_VX, ROW_VY, BucketConfig,
+    _overflow_spec, candidate_features, pair_mask, pair_velocities,
+    query_features, tile_coords,
 )
 
 
@@ -57,139 +61,60 @@ def window_query_slots(cfg: BucketConfig, sp_tcx, sp_tcy) -> torch.Tensor:
              + qrow[:, None, None]) * b + lane).reshape(-1, 9 * b)
 
 
-def spill_window_plain(cfg: BucketConfig, zp5, packed_t, packed_T, sp_T,
-                       sp_tcx, sp_tcy, int_prio: bool, chunk: int = 32):
-    """Plain version of K2 over the valid spill slots (like the kernel,
-    it leaves invalid slots' rows unwritten), in chunks of ``chunk``."""
+def window_candidate_slots(cfg: BucketConfig, sp_tcx, sp_tcy) -> torch.Tensor:
+    """[S, 25b] packed slots of each spill's 5x5 window, column by column,
+    each column's 5 tiles in order."""
     b, ty = cfg.bucket, cfg.ty
-    s_cap = sp_T.shape[1]
-    dev = packed_t.device
-    out = torch.empty((s_cap, 9 * b, 2), dtype=torch.float32, device=dev)
     bx, by, _, _ = _window_geometry(cfg, sp_tcx, sp_tcy)
-    q_slots = window_query_slots(cfg, sp_tcx, sp_tcy)
-    lane = torch.arange(5 * b, device=dev)
+    dev = bx.device
     k = torch.arange(5, device=dev)
-    live = torch.nonzero(sp_T[ROW_ID] >= 0).squeeze(1)
-    for lo in range(0, live.shape[0], chunk):
-        p = live[lo:lo + chunk]
-        base = ((bx[p, None] + k) * ty + by[p, None]) * b    # [c, 5]
-        cand = (base[..., None] + lane).reshape(p.shape[0], 25 * b)
-        cf = torch.cat([
-            packed_T[:, cand],
-            sp_T[:, None, :].expand(-1, p.shape[0], -1),
-        ], dim=2)                                   # [8, c, 25b + S]
-        c = candidate_features(cf)                  # [c, 1, C]
-        q = query_features(packed_t[q_slots[p]])    # [c, 9b, 1]
-        out[p] = pair_velocities(zp5, q, c, pair_mask(q, c), int_prio)
-    return out
-
-
-def spill_window(cfg: BucketConfig, zp5: torch.Tensor, packed_t, packed_T,
-                 sp_T: torch.Tensor, sp_tcx: torch.Tensor,
-                 sp_tcy: torch.Tensor, int_prio: bool = False):
-    """K2: [S, 9b, 2] velocities of each spill's 3x3 window queries
-    against its 5x5 window plus the spill list (replaces
-    zanlungo_pallas.py:1867 ``_spill_groups_window_pallas``).
-
-    ``sp_T``: [NUM_CAND, S] spill candidate features, id -1 on invalid
-    slots; ``sp_tcx``/``sp_tcy``: [S] int32 tiles.  Rows of invalid spills
-    are left unwritten by the kernel (callers mask by query id).  CPU
-    tensors take the plain version; CUDA tensors launch
-    ``csrc/spill_window.cu``."""
-    if packed_t.device.type == "cpu":
-        return spill_window_plain(cfg, zp5, packed_t, packed_T, sp_T,
-                                  sp_tcx, sp_tcy, int_prio)
-    from ..utils import cuda_build
-
-    s_cap = sp_T.shape[1]
-    cuda_build.check_tensors(
-        "spill_window",
-        zp5=(zp5, torch.float32, (5,)),
-        packed_t=(packed_t, torch.float32, (cfg.slots, NUM_F)),
-        packed_T=(packed_T, torch.float32, (8, cfg.slots)),
-        sp_T=(sp_T, torch.float32, (8, s_cap)),
-        sp_tcx=(sp_tcx, torch.int32, (s_cap,)),
-        sp_tcy=(sp_tcy, torch.int32, (s_cap,)),
-    )
-    out = torch.empty((s_cap, 9 * cfg.bucket, 2), dtype=torch.float32,
-                      device=packed_t.device)
-    cuda_build.launch("crowdsim_spill_window", zp5, packed_t, packed_T,
-                      sp_T, sp_tcx, sp_tcy, out, s_cap, cfg.tx, cfg.ty,
-                      cfg.bucket, int(bool(int_prio)))
-    spill_window.launches += 1
-    return out
-
-
-spill_window.launches = 0
-
-
-def _spill_own_rows(cfg: BucketConfig, zp, packed_t, sp: dict, sp_tcx,
-                    sp_tcy, spill_valid):
-    """Velocities [S, 1, 2] of the spill agents' own rows: each spill
-    against its 3x3 packed window plus the spill list, through the
-    models/local math (zanlungo_pallas.py:1936)."""
-    s_cap = sp_tcx.shape[0]
-    w3 = packed_t[window_query_slots(cfg, sp_tcx, sp_tcy)]   # [S, 9b, F]
-    w3_ok = w3[..., ROW_ID] >= 0
-
-    def cat(win, spill):
-        return torch.cat([win, spill[None].expand(s_cap, *spill.shape)], 1)
-
-    c_pos = cat(w3[..., ROW_PX:ROW_PX + 2], sp["pos"])
-    c_vel = cat(w3[..., 2:4], sp["vel"])
-    c_prefc = cat(w3[..., 4:6], sp["prefc"])
-    c_prio = cat(w3[..., 6], sp["prio"])
-    c_id = cat(torch.where(w3_ok, w3[..., ROW_ID],
-                           torch.full_like(w3[..., ROW_ID], -1.0)), sp["id"])
-    d2 = ((c_pos - sp["pos"][:, None, :]) ** 2).sum(-1)     # [S, nc]
-    valid = ((c_id >= 0) & spill_valid[:, None]
-             & (d2 < (sp["eye"] ** 2)[:, None])
-             & (c_id != sp["id"][:, None]))
-    return zanlungo_from_rows(
-        zp, sp["pos"][:, None], sp["vel"][:, None], sp["spref"][:, None],
-        sp["prio"][:, None], c_pos[:, None], c_vel[:, None],
-        c_prefc[:, None], c_prio[:, None], valid[:, None],
-        sp["rec"][:, None],
-    )
+    base = ((bx[:, None] + k) * ty + by[:, None]) * b             # [S, 5]
+    return (base[..., None]
+            + torch.arange(5 * b, device=dev)).reshape(-1, 25 * b)
 
 
 def spill_rows(cfg: BucketConfig, position, velocity, self_pref,
                pref_committed, priority, eyesight, alive, rec_vel,
-               bucket_pos, spill_capacity: int, tile_xy=None, enabled=None):
+               bucket_pos, spill_capacity: int, tile_xy=None):
     """The first ``spill_capacity`` spills (alive agents without a bucket
-    slot), found without a host read.  Returns (compaction, sp — dict of
-    [S, ...] f32 features pos, vel, prefc, spref, prio, eye, rec, id (the
-    agent index, -1 on invalid slots) — , sp_tcx [S] int32, sp_tcy [S]
-    int32).  ``tile_xy``: carried tiles (tcx, tcy), else fresh ones.
-    ``enabled``: a [] bool on the device; where False every slot is
-    invalid (``count`` and ``n_over`` still count the spills)."""
+    slot), found without a host read.  Returns (compaction, rows [S,
+    NUM_F] f32 in the packed-row layout — position, velocity, committed
+    preference, priority, id (the agent index, -1 on invalid slots), rec,
+    eyesight, self preference; rows 13-15 zero, as the JAX package builds
+    them at zanlungo_pallas.py:2057-2071 — , sp_tcx [S] int32, sp_tcy [S]
+    int32; 1 on invalid slots).  ``tile_xy``: carried tiles (tcx, tcy),
+    else fresh ones.  The compaction fills in order, so the first k rows
+    are the list of the first k spills."""
     n = position.shape[0]
     f32 = torch.float32
     c_sp = compact_indices(alive & (bucket_pos >= cfg.slots),
                            int(spill_capacity))
-    if enabled is not None:
-        c_sp = c_sp._replace(valid=c_sp.valid & enabled)
     valid = c_sp.valid
+    s_cap = valid.shape[0]
     sc = torch.clamp(c_sp.idx, 0, n - 1).long()
     if tile_xy is not None:
         tcx, tcy = tile_xy[0][sc], tile_xy[1][sc]
     else:
         tcx, tcy = tile_coords(cfg, position[sc])
-    one = torch.ones((), dtype=torch.int32, device=position.device)
-    sp_tcx = torch.where(valid, tcx.to(torch.int32), one).contiguous()
-    sp_tcy = torch.where(valid, tcy.to(torch.int32), one).contiguous()
-    sp = dict(
-        pos=position[sc].to(f32),
-        vel=velocity[sc].to(f32),
-        prefc=pref_committed[sc].to(f32),
-        spref=self_pref[sc].to(f32),
-        prio=priority[sc].to(f32),
-        eye=eyesight[sc].to(f32),
-        rec=rec_vel[sc].to(f32),
-        id=torch.where(valid, c_sp.idx,
-                       torch.full_like(c_sp.idx, -1)).to(f32),
-    )
-    return c_sp, sp, sp_tcx, sp_tcy
+    sp_tcx = torch.where(valid, tcx.to(torch.int32), 1).contiguous()
+    sp_tcy = torch.where(valid, tcy.to(torch.int32), 1).contiguous()
+
+    def col(x):
+        return x[sc].to(f32).reshape(s_cap, -1)
+
+    rows = torch.cat([
+        col(position), col(velocity), col(pref_committed), col(priority),
+        torch.where(valid, c_sp.idx, -1).to(f32)[:, None],
+        col(rec_vel), col(eyesight), col(self_pref),
+        torch.zeros((s_cap, NUM_F - 13), dtype=f32, device=position.device),
+    ], dim=1)
+    return c_sp, rows, sp_tcx, sp_tcy
+
+
+def spill_candidates(rows: torch.Tensor) -> torch.Tensor:
+    """The spill list as a candidate plane [NUM_CAND, S] f32 (K1b's
+    ``sp_T``)."""
+    return rows[:, :NUM_CAND].t().contiguous()
 
 
 def spill_flags(cfg: BucketConfig, sp_tcx, sp_tcy, spill_valid):
@@ -221,74 +146,145 @@ def spill_flags(cfg: BucketConfig, sp_tcx, sp_tcy, spill_valid):
     return flags[:n_blocks]
 
 
-def spill_candidates(sp: dict) -> torch.Tensor:
-    """The spill list as K2's candidate plane [NUM_CAND, S] f32."""
-    return torch.stack([
-        sp["pos"][:, 0], sp["pos"][:, 1], sp["vel"][:, 0], sp["vel"][:, 1],
-        sp["prefc"][:, 0], sp["prefc"][:, 1], sp["prio"], sp["id"],
-    ], dim=0).contiguous()
+# ---------------------------------------------------------------------------
+# K2: the spill repair
+# ---------------------------------------------------------------------------
 
 
-def _spill_groups(cfg: BucketConfig, zp, packed_t, packed_T, sp: dict,
-                  sp_tcx, sp_tcy, spill_valid, int_prio: bool = False):
-    """Per-spill group evaluation (zanlungo_pallas.py:2019): out [S, 9b+1,
-    2] (window queries by K2, then the spill's own row), q_id [S, 9b+1]
-    (the queries' agent ids, -1 where invalid), q_slots [S, 9b]."""
+def affected(cfg: BucketConfig, packed_t, rows, sp_tcx, sp_tcy):
+    """[S, 9b] bool: window query q of spill p is rewritten — p is valid,
+    q is live and ``d^2(q, spill p) < eye_q^2`` (zanlungo_pallas.py:1546-
+    1559), in the kernel's f32 arithmetic."""
+    q = packed_t[window_query_slots(cfg, sp_tcx, sp_tcy)]     # [S, 9b, F]
+    dx = q[..., ROW_PX] - rows[:, None, ROW_PX]
+    dy = q[..., ROW_PY] - rows[:, None, ROW_PY]
+    eye = q[..., ROW_EYE]
+    return ((rows[:, None, ROW_ID] >= 0) & (q[..., ROW_ID] >= 0)
+            & (dx * dx + dy * dy < eye * eye))
+
+
+def _own_rows_plain(cfg: BucketConfig, zp5, packed_t, rows, sp_tcx,
+                    sp_tcy):
+    """[S, 1, 2] velocities of the spills' own rows: each against the 9b
+    slots of its 3x3 query block plus the spill list, in the models/local
+    math (zanlungo_pallas.py:1936 ``_spill_own_rows``)."""
+    s_cap = rows.shape[0]
+    zp = types.SimpleNamespace(agent_scale=zp5[0], force_distance=zp5[1],
+                               agent_mass=zp5[2], agent_radius=zp5[3],
+                               force_cap=zp5[4])
+    w3 = packed_t[window_query_slots(cfg, sp_tcx, sp_tcy)]   # [S, 9b, F]
+
+    def cat(lo, hi):
+        return torch.cat([w3[..., lo:hi],
+                          rows[None, :, lo:hi].expand(s_cap, -1, -1)], 1)
+
+    c_pos = cat(ROW_PX, ROW_PY + 1)
+    c_prio = cat(ROW_PRIO, ROW_PRIO + 1)[..., 0]
+    c_id = cat(ROW_ID, ROW_ID + 1)[..., 0]
+    sp_pos = rows[:, ROW_PX:ROW_PY + 1]
+    sp_id = rows[:, ROW_ID]
+    d2 = ((c_pos - sp_pos[:, None, :]) ** 2).sum(-1)          # [S, nc]
+    valid = ((c_id >= 0) & (sp_id >= 0)[:, None]
+             & (d2 < (rows[:, ROW_EYE] ** 2)[:, None])
+             & (c_id != sp_id[:, None]))
+    return zanlungo_from_rows(
+        zp, sp_pos[:, None], rows[:, None, ROW_VX:ROW_VY + 1],
+        rows[:, None, ROW_SPX:ROW_SPY + 1], rows[:, None, ROW_PRIO],
+        c_pos[:, None], cat(ROW_VX, ROW_VY + 1)[:, None],
+        cat(ROW_FX, ROW_FY + 1)[:, None], c_prio[:, None], valid[:, None],
+        rows[:, None, ROW_RX:ROW_RY + 1],
+    )
+
+
+def spill_window_plain(cfg: BucketConfig, zp5, packed_t, packed_T, rows,
+                       sp_tcx, sp_tcy, vel, int_prio: bool, windows=None,
+                       chunk: int = 32):
+    """Plain version of K2: the window rows against the whole 5x5 window
+    plus the list (the JAX contract), in chunks of ``chunk`` valid spills;
+    the own rows in the models/local math; then the masked write into
+    ``vel``.  Like the kernel, it leaves invalid spills' rows of the
+    returned ``out`` unwritten; where ``windows`` is false the window rows
+    are computed but not written to ``vel``."""
+    b = cfg.bucket
+    s_cap = rows.shape[0]
+    out = torch.empty((s_cap, 9 * b + 1, 2), dtype=packed_t.dtype,
+                      device=packed_t.device)
+    q_slots = window_query_slots(cfg, sp_tcx, sp_tcy)
+    cand = window_candidate_slots(cfg, sp_tcx, sp_tcy)
+    sp_T = spill_candidates(rows)
+    valid = rows[:, ROW_ID] >= 0
+    live = torch.nonzero(valid).squeeze(1)
+    for lo in range(0, live.shape[0], chunk):
+        p = live[lo:lo + chunk]
+        c = candidate_features(torch.cat([
+            packed_T[:, cand[p]], sp_T[:, None, :].expand(-1, p.shape[0], -1),
+        ], 2))
+        q = query_features(packed_t[q_slots[p]])             # [c, 9b, 1]
+        out[p, :9 * b] = pair_velocities(zp5, q, c, pair_mask(q, c),
+                                         int_prio)
+    own = _own_rows_plain(cfg, zp5, packed_t, rows, sp_tcx, sp_tcy)
+    out[valid, 9 * b] = own[valid, 0]
+    aff = affected(cfg, packed_t, rows, sp_tcx, sp_tcy)
+    if windows is not None:
+        aff &= windows
+    q_id = packed_t[q_slots, ROW_ID]
+    vel[q_id[aff].long()] = out[:, :9 * b][aff].to(vel.dtype)
+    vel[rows[valid, ROW_ID].long()] = out[valid, 9 * b].to(vel.dtype)
+    return out
+
+
+def spill_window(cfg: BucketConfig, zp5: torch.Tensor, packed_t, packed_T,
+                 rows: torch.Tensor, sp_tcx: torch.Tensor,
+                 sp_tcy: torch.Tensor, vel: torch.Tensor,
+                 int_prio: bool = False, windows: torch.Tensor | None = None,
+                 overflow: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: the spill repair in one launch (replaces zanlungo_pallas.py:1867
+    ``_spill_groups_window_pallas`` with the own rows of :1936 and the
+    write of :1538-1583).  Writes the affected window rows and every valid
+    spill's own row into ``vel`` [N, 2] (float32 or float64, in place) and
+    returns ``out`` [S, 9b+1, 2] f32: each spill's window rows, then its
+    own row (the contract ``csrc/spill_window.cu`` states).
+
+    ``rows``, ``sp_tcx``, ``sp_tcy``: from :func:`spill_rows`.
+    ``windows``: a [] bool on the device; where False only the own rows
+    are computed and written (the fused-spill pass when its spills fit),
+    chosen without a host read.  ``overflow``: an optional [1] int32
+    counter of queries whose hits overflow the kernel's neighbour list.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     assert cfg.tx >= 5 and cfg.ty >= 5, (
         "the spill machinery needs a >= 5x5-tile world (set "
         "spill_capacity=0 for smaller worlds)"
     )
-    s_cap = sp_tcx.shape[0]
-    out_win = spill_window(cfg, zparams5(zp), packed_t, packed_T,
-                           spill_candidates(sp), sp_tcx, sp_tcy,
-                           int_prio=int_prio)
-    q_slots = window_query_slots(cfg, sp_tcx, sp_tcy)
-    q_id = torch.where(
-        spill_valid[:, None], packed_t[q_slots.reshape(-1), ROW_ID].reshape(
-            s_cap, -1),
-        torch.full((), -1.0, device=packed_t.device),
+    if packed_t.device.type == "cpu":
+        return spill_window_plain(cfg, zp5, packed_t, packed_T, rows,
+                                  sp_tcx, sp_tcy, vel, int_prio, windows)
+    from ..utils import cuda_build
+
+    s_cap = rows.shape[0]
+    if vel.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"spill_window: vel must be float32 or float64, "
+                         f"got {vel.dtype}")
+    cuda_build.check_tensors(
+        "spill_window",
+        zp5=(zp5, torch.float32, (5,)),
+        packed_t=(packed_t, torch.float32, (cfg.slots, NUM_F)),
+        packed_T=(packed_T, torch.float32, (NUM_CAND, cfg.slots)),
+        rows=(rows, torch.float32, (s_cap, NUM_F)),
+        sp_tcx=(sp_tcx, torch.int32, (s_cap,)),
+        sp_tcy=(sp_tcy, torch.int32, (s_cap,)),
+        vel=(vel, vel.dtype, (vel.shape[0], 2)),
+        **({} if windows is None else
+           dict(windows=(windows, torch.bool, ()))),
+        **_overflow_spec(overflow),
     )
-    own = _spill_own_rows(cfg, zp, packed_t, sp, sp_tcx, sp_tcy,
-                          spill_valid)
-    out = torch.cat([out_win, own], dim=1)
-    q_id_full = torch.cat([q_id, sp["id"][:, None]], dim=1)
-    return out, q_id_full, q_slots
+    out = torch.empty((s_cap, 9 * cfg.bucket + 1, 2), dtype=torch.float32,
+                      device=packed_t.device)
+    cuda_build.launch(
+        "crowdsim_spill_window", zp5, packed_t, packed_T, rows, sp_tcx,
+        sp_tcy, windows, out, vel, overflow, s_cap, cfg.tx, cfg.ty,
+        cfg.bucket, int(vel.dtype == torch.float64), int(bool(int_prio)))
+    spill_window.launches += 1
+    return out
 
 
-def spill_patch(cfg: BucketConfig, zp, position, velocity, self_pref,
-                pref_committed, priority, eyesight, alive, rec_vel,
-                packed_t, packed_T, bucket_pos, vel, spill_capacity: int,
-                int_prio: bool = False, tile_xy=None, enabled=None):
-    """EXACT repair of bucket-overflow truncation (zanlungo_pallas.py:1440).
-    Returns (vel, unresolved) — ``unresolved`` counts spills beyond
-    ``spill_capacity``.  ``tile_xy``: the carried tiles (tcx, tcy) of the
-    skin-deferred presort, else tiles come from fresh positions.
-    ``enabled``: a [] bool on the device; where False no row is
-    rewritten (the fused-spill pass's storm branch, chosen without a
-    host read)."""
-    n = position.shape[0]
-    s_cap = int(spill_capacity)
-    c_sp, sp, sp_tcx, sp_tcy = spill_rows(
-        cfg, position, velocity, self_pref, pref_committed, priority,
-        eyesight, alive, rec_vel, bucket_pos, s_cap, tile_xy=tile_xy,
-        enabled=enabled)
-    spill_valid = c_sp.valid
-    out, q_id, q_slots = _spill_groups(
-        cfg, zp, packed_t, packed_T, sp, sp_tcx, sp_tcy, spill_valid,
-        int_prio=int_prio,
-    )
-    # Overwrite AFFECTED rows only: a window query's force changed iff a
-    # spill sits strictly within its eyesight; the spill's own row always.
-    q_agent = q_id.long()
-    qrows = packed_t[q_slots.reshape(-1)]
-    nq = q_slots.shape[1]
-    qpx = qrows[:, ROW_PX].reshape(s_cap, nq)
-    qpy = qrows[:, ROW_PY].reshape(s_cap, nq)
-    qeye = qrows[:, ROW_EYE].reshape(s_cap, nq)
-    d2s = ((qpx - sp["pos"][:, 0:1]) ** 2 + (qpy - sp["pos"][:, 1:2]) ** 2)
-    aff = torch.cat([(d2s < qeye * qeye) & spill_valid[:, None],
-                     spill_valid[:, None]], dim=1) & (q_agent >= 0)
-    tgt = torch.where(aff, q_agent, torch.full_like(q_agent, n)).reshape(-1)
-    buf = torch.cat([vel, vel.new_zeros((1, 2))], dim=0)     # row n: discard
-    buf.index_put_((tgt,), out.reshape(-1, 2).to(vel.dtype))
-    return buf[:n], c_sp.n_over.to(torch.int32)
+spill_window.launches = 0

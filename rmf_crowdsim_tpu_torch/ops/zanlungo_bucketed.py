@@ -11,7 +11,7 @@ flat id ``t = tcx * ty + tcy``; each tile owns ``bucket`` slots of a
 ``[slots, NUM_F]`` feature plane (``packed_t``) and of its 8-row candidate
 transpose (``packed_T``); empty slots hold the sentinel row (position
 1e30, id -1).  Agents beyond a tile's bucket ("spills") are repaired
-exactly by ``ops/spill.spill_patch``.
+exactly by ``ops/spill`` (kernel K2).
 
 K1 computes, for every live slot, ``rec + F/m`` over every live candidate
 in the 3x3 tiles around the query's tile with ``d^2 < eye^2`` and another
@@ -715,7 +715,7 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
                    presorted: bool = False, int_prio: bool = False,
                    binning=None, dual_row: bool = False,
                    fused_spills: bool = False):
-    """bucketize -> K1 (or K1b) -> unbucketize -> spill repair
+    """bucketize -> K1 (or K1b) -> unbucketize -> spill repair (K2)
     (zanlungo_pallas.py:2106).  Returns (vel [N, 2], max tile occupancy []
     int32, dropped [] int32).
 
@@ -725,18 +725,18 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
     so no agent can lose its slot to pack overflow and the JAX package's
     ``_fix_pack_dropped`` branch has nothing to fix.
 
-    ``fused_spills`` (with ``spill_capacity > 0`` on a >= 5x5-tile
-    world): the first ``min(128, spill_capacity)`` spills ride K1b as a
-    fourth candidate segment on flagged sub-blocks, and only their own
-    rows run the oracle-math pass.  Where the JAX package picks fused,
-    storm or nothing with ``lax.cond``, the port runs both branches
-    masked on the device: the own rows land only if the spills ``fit``,
-    and ``spill_patch`` rewrites rows only if they do not (a storm), so
-    the step gains no host read."""
-    from .spill import (_spill_own_rows, spill_candidates, spill_flags,
-                        spill_patch, spill_rows)
+    With ``spill_capacity > 0`` the first ``spill_capacity`` spills are
+    listed once (``spill.spill_rows``) and K2 (``spill.spill_window``)
+    writes their own rows and, on the spill-patch path, every affected
+    window row into ``vel``.  ``fused_spills`` (on a >= 5x5-tile world):
+    the first ``min(128, spill_capacity)`` of them ride K1b as a fourth
+    candidate segment on flagged sub-blocks, so K2's window rows are
+    needed only in a storm (more spills than that).  Where the JAX package
+    picks fused, storm or nothing with ``lax.cond``, the port gates K2's
+    window rows with a bool on the device, so the step gains no host
+    read."""
+    from .spill import spill_candidates, spill_flags, spill_rows, spill_window
 
-    n = position.shape[0]
     dtype = position.dtype
     tile_xy = None
     bin3 = None
@@ -751,19 +751,22 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
         presorted=presorted, binning=bin3,
     )
     zp5 = zparams5(zp)
+    if spill_capacity > 0:
+        c_sp, rows, sp_tcx, sp_tcy = spill_rows(
+            cfg, position, velocity, self_pref, pref_committed, priority,
+            eyesight, alive, rec_vel, bucket_pos, int(spill_capacity),
+            tile_xy=tile_xy)
     use_fsp = bool(spill_capacity > 0 and fused_spills
                    and cfg.tx >= 5 and cfg.ty >= 5)
     if use_fsp:
         # Fused-spill discovery (zanlungo_pallas.py:2158-2205): the first
         # min(128, spill_capacity) spills are K1b's spill plane.
-        c_sp, sp, sp_tcx, sp_tcy = spill_rows(
-            cfg, position, velocity, self_pref, pref_committed, priority,
-            eyesight, alive, rec_vel, bucket_pos,
-            min(FUSED_SPILL_LANES, int(spill_capacity)), tile_xy=tile_xy)
+        n_fused = min(FUSED_SPILL_LANES, int(spill_capacity))
         out = zanlungo_forces_bucketed_spill(
             cfg, zp5, packed_t, packed_T,
-            spill_flags(cfg, sp_tcx, sp_tcy, c_sp.valid),
-            spill_candidates(sp), int_prio=int_prio)
+            spill_flags(cfg, sp_tcx[:n_fused], sp_tcy[:n_fused],
+                        c_sp.valid[:n_fused]),
+            spill_candidates(rows[:n_fused]), int_prio=int_prio)
     else:
         out = zanlungo_forces_bucketed(cfg, zp5, packed_t, packed_T,
                                        int_prio=int_prio)
@@ -771,29 +774,13 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
     vel = out[torch.clamp(bucket_pos, 0, cfg.slots - 1).long()].to(dtype)
     vel = torch.where(ok[:, None], vel, rec_vel)
     if spill_capacity > 0:
-        n_bucket_over = (alive & (bucket_pos >= cfg.slots)).sum(
-            dtype=torch.int32)
-        enabled = None
-        if use_fsp:
-            # Fused branch: the spills' own rows (affected packed rows
-            # were fixed in K1b), written only if every spill fit; else
-            # they go to the discard row n and the storm branch, the full
-            # patch, rewrites every affected row.
-            fits = c_sp.n_over == 0
-            own = _spill_own_rows(cfg, zp, packed_t, sp, sp_tcx, sp_tcy,
-                                  c_sp.valid)[:, 0, :]
-            tgt = torch.where(c_sp.valid & fits, c_sp.idx,
-                              torch.full_like(c_sp.idx, n)).long()
-            buf = torch.cat([vel, vel.new_zeros((1, 2))], dim=0)
-            buf.index_put_((tgt,), own.to(dtype))
-            vel = buf[:n]
-            enabled = ~fits
-        vel, unresolved = spill_patch(
-            cfg, zp, position, velocity, self_pref, pref_committed,
-            priority, eyesight, alive, rec_vel, packed_t, packed_T,
-            bucket_pos, vel, spill_capacity, int_prio=int_prio,
-            tile_xy=tile_xy, enabled=enabled,
-        )
-        pack_over = dropped - n_bucket_over
-        dropped = (unresolved + pack_over).to(torch.int32)
+        # Fused: K1b fixed the affected packed rows of the spills it held;
+        # K2 rewrites every affected row only in a storm, from scratch
+        # (idempotent, so any partial fused contribution is replaced).
+        windows = c_sp.count > n_fused if use_fsp else None
+        spill_window(cfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy, vel,
+                     int_prio=int_prio, windows=windows)
+        # `dropped` counted every spill (and any pack overflow); only those
+        # past the list stay unresolved.
+        dropped = (dropped - c_sp.count + c_sp.n_over).to(torch.int32)
     return vel, max_occ, dropped

@@ -44,7 +44,7 @@ SIGNATURES = {
     "crowdsim_pack_rows": "pppiipp",
     "crowdsim_zanlungo_bucketed": "pppppiiiiii",
     "crowdsim_zanlungo_bucketed_spill": "pppppppiiiiiiii",
-    "crowdsim_spill_window": "pppppppiiiii",
+    "crowdsim_spill_window": "ppppppppppiiiiii",
     "crowdsim_zanlungo_dense": "pppppiiiiiii",
 }
 

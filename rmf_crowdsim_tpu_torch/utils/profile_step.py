@@ -59,14 +59,14 @@ def time_steps(n: int, steps: int, **scene) -> dict:
                 truncated=int(counters.neighbor_truncated.max()))
 
 
-def profile(n: int, steps: int, top: int, **scene) -> dict:
-    """Device time per step by kernel, from ``torch.profiler``."""
-    rollout, params, st = _bench(n, **scene)
+def device_kernels(run, steps: int, top: int = 15) -> dict:
+    """Calls ``run()`` (``steps`` steps, ending in a synchronize) under
+    ``torch.profiler``: device time and kernel launches per step, and the
+    ``top`` kernels by device time (ms/step, launches/step, name)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        st, _ = rollout(params, st, DT, steps)
-        torch.cuda.synchronize()
+        run()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = collections.defaultdict(lambda: [0, 0.0])
@@ -79,6 +79,17 @@ def profile(n: int, steps: int, top: int, **scene) -> dict:
         top=sorted(((v[1] / steps, v[0] / steps, k)
                     for k, v in by_name.items()), reverse=True)[:top],
     )
+
+
+def profile(n: int, steps: int, top: int, **scene) -> dict:
+    """Device time per step by kernel, from ``torch.profiler``."""
+    rollout, params, st = _bench(n, **scene)
+
+    def run():
+        rollout(params, st, DT, steps)
+        torch.cuda.synchronize()
+
+    return device_kernels(run, steps, top)
 
 
 def main() -> None:

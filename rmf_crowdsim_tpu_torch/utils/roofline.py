@@ -6,7 +6,7 @@ once, over the H100's 3.35 TB/s; and the f32 operations its inputs need,
 over the H100's 67 TFLOP/s outside the tensor cores.  Where the work
 depends on the data, both count what these inputs need, not the most
 they could: K1's and K4's bytes follow the live slots and rows, K2's the
-live spills; the operations are one mask test per live (query,
+live spills and the rows it writes; the operations are one mask test per live (query,
 candidate) pair in the kernel's window, the time to collision for every
 pair that the mask takes, and the force for every such pair of a query
 with a finite time to collision.
@@ -186,45 +186,59 @@ def k1b_work(cfg, zp5, packed_t, packed_T, sflag, sp_T,
 # ---------------------------------------------------------------------------
 
 
-def _k2_windows(cfg, sp_T, sp_tcx, sp_tcy):
-    """(live spills [P], their candidate slots [P, 25b], their query slots
-    [P, 9b]), as ``spill.spill_window_plain`` builds them."""
-    b, ty = cfg.bucket, cfg.ty
-    live = torch.nonzero(sp_T[zb.ROW_ID] >= 0).squeeze(1)
-    bx, by, _, _ = _spill._window_geometry(cfg, sp_tcx[live], sp_tcy[live])
-    k = torch.arange(5, device=sp_T.device)
-    base = ((bx[:, None] + k) * ty + by[:, None]) * b
-    cand = (base[..., None]
-            + torch.arange(5 * b, device=sp_T.device)).reshape(-1, 25 * b)
-    q_slots = _spill.window_query_slots(cfg, sp_tcx[live], sp_tcy[live])
-    return live, cand, q_slots
+def _k2_windows(cfg, rows, sp_tcx, sp_tcy):
+    """(live spills [P], their window candidate slots [P, 25b], their
+    query slots [P, 9b]), as ``spill.spill_window_plain`` builds them."""
+    live = torch.nonzero(rows[:, zb.ROW_ID] >= 0).squeeze(1)
+    tcx, tcy = sp_tcx[live], sp_tcy[live]
+    return (live, _spill.window_candidate_slots(cfg, tcx, tcy),
+            _spill.window_query_slots(cfg, tcx, tcy))
 
 
-def k2_bytes(cfg, zp5, sp_T, sp_tcx, sp_tcy) -> int:
-    """The spill list and tiles, and for the live spills only (the others'
+OWN_F = 5   # spill-row features only the own row reads: rec, eye, self pref
+
+
+def k2_bytes(cfg, zp5, packed_t, rows, sp_tcx, sp_tcy, vel) -> int:
+    """``zp5`` and the spill tiles; of the spill rows [S, 16], the 8
+    candidate features and the 5 more that its own row reads of each live
+    spill, the id of each other one; for the live spills only (the other
     blocks return at once): the distinct candidate slots of their 5x5
     windows (8 features) and query slots of their 3x3 blocks (16
-    features) in, and their [9b, 2] rows out."""
-    live, cand, q_slots = _k2_windows(cfg, sp_T, sp_tcx, sp_tcy)
-    return (_nbytes(zp5, sp_T, sp_tcx, sp_tcy)
-            + _F32 * (zb.NUM_CAND * torch.unique(cand).numel()
+    features) in, their [9b + 1, 2] rows of ``out``; and one ``vel`` row
+    for each agent written (each affected window query once, each own
+    row)."""
+    live, cand, q_slots = _k2_windows(cfg, rows, sp_tcx, sp_tcy)
+    n_live = live.numel()
+    aff = _spill.affected(cfg, packed_t, rows, sp_tcx, sp_tcy)
+    q_id = packed_t[_spill.window_query_slots(cfg, sp_tcx, sp_tcy),
+                    zb.ROW_ID]
+    written = torch.unique(q_id[aff]).numel() + n_live
+    return (_nbytes(zp5, sp_tcx, sp_tcy)
+            + _F32 * ((zb.NUM_CAND + OWN_F) * n_live
+                      + rows.shape[0] - n_live
+                      + zb.NUM_CAND * torch.unique(cand).numel()
                       + zb.NUM_F * torch.unique(q_slots).numel()
-                      + 2 * q_slots.numel()))
+                      + OUT_F * (q_slots.numel() + n_live))
+            + OUT_F * vel.element_size() * written)
 
 
-def k2_work(cfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy,
+def k2_work(cfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy,
             chunk: int = 32) -> Work:
     """Each live spill's 3x3 queries against its 5x5 window followed by
-    the spill list."""
-    live, cand, q_slots = _k2_windows(cfg, sp_T, sp_tcx, sp_tcy)
+    the spill list (the JAX contract's work, whatever walks it), and its
+    own row against its 3x3 block followed by the list (counted at the
+    pair math's costs)."""
+    live, cand, q_slots = _k2_windows(cfg, rows, sp_tcx, sp_tcy)
+    sp_T = _spill.spill_candidates(rows)
     work = Work()
     for lo in range(0, live.shape[0], chunk):
-        cf = torch.cat([
-            packed_T[:, cand[lo:lo + chunk]],
-            sp_T[:, None, :].expand(-1, cand[lo:lo + chunk].shape[0], -1),
-        ], dim=2)
-        q = zb.query_features(packed_t[q_slots[lo:lo + chunk]])
-        work += _pair_work(zp5, q, zb.candidate_features(cf))
+        sl = slice(lo, lo + chunk)
+        spl = sp_T[:, None, :].expand(-1, cand[sl].shape[0], -1)
+        for q, cf in (
+                (packed_t[q_slots[sl]], packed_T[:, cand[sl]]),
+                (rows[live[sl]][:, None, :], packed_T[:, q_slots[sl]])):
+            work += _pair_work(zp5, zb.query_features(q),
+                               zb.candidate_features(torch.cat([cf, spl], 2)))
     return work
 
 

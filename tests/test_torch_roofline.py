@@ -121,10 +121,10 @@ def test_k1b_and_k2_work_on_an_overflowing_scene():
     packed_t, packed_T, bucket_pos, occ, _ = tzb.bucketize(
         tcfg, pos, vel, pref_c, self_pref, prio, eye, rec, alive)
     assert int(occ) > tcfg.bucket
-    c_sp, sp, sp_tcx, sp_tcy = tspill.spill_rows(
+    c_sp, rows, sp_tcx, sp_tcy = tspill.spill_rows(
         tcfg, *scene, bucket_pos, tzb.FUSED_SPILL_LANES)
     sflag = tspill.spill_flags(tcfg, sp_tcx, sp_tcy, c_sp.valid)
-    sp_T = tspill.spill_candidates(sp)
+    sp_T = tspill.spill_candidates(rows)
     zp5 = tzb.zparams5(torch_params())
 
     k1 = rl.k1_work(tcfg, zp5, packed_t, packed_T)
@@ -136,16 +136,32 @@ def test_k1b_and_k2_work_on_an_overflowing_scene():
     assert k1b.tests - k1.tests == int(flagged.sum()) * n_spills
     assert k1b.pairs > k1.pairs
 
-    k2 = rl.k2_work(tcfg, zp5, packed_t, packed_T, sp_T, sp_tcx, sp_tcy)
+    k2 = rl.k2_work(tcfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy)
     assert k2.tests >= k2.pairs >= k2.forced > 0
-    # K2's bytes: only the live spills' windows, each slot once.
-    _, cand, q_slots = rl._k2_windows(tcfg, sp_T, sp_tcx, sp_tcy)
-    assert cand.shape[0] == n_spills
-    want = (4 * (5 + 8 * sp_T.shape[1] + 2 * sp_T.shape[1])
-            + 4 * (8 * np.unique(cand.numpy()).size
+    # The own rows: each live spill against the live slots of its 3x3
+    # block and the other live spills.
+    _, cand, q_slots = rl._k2_windows(tcfg, rows, sp_tcx, sp_tcy)
+    assert cand.shape[0] == q_slots.shape[0] == n_spills
+    live_q = (packed_t[q_slots, tzb.ROW_ID] >= 0).sum(1)
+    live_c = (packed_t[cand, tzb.ROW_ID] >= 0).sum(1)
+    assert k2.tests == int((live_q * (live_c + n_spills)).sum()
+                           + (live_q + n_spills).sum())
+    # K2's bytes: only the live spills' windows, each slot once; the spill
+    # rows by need; out's rows; each written vel row once.
+    aff = tspill.affected(tcfg, packed_t, rows, sp_tcx, sp_tcy)
+    q_all = tspill.window_query_slots(tcfg, sp_tcx, sp_tcy)
+    written = np.unique(packed_t[q_all, tzb.ROW_ID][aff].numpy()).size
+    assert written > 0
+    s = rows.shape[0]
+    vel = torch.zeros((pos.shape[0], 2), dtype=torch.float64)
+    want = (4 * (5 + 2 * s)
+            + 4 * (13 * n_spills + (s - n_spills)
+                   + 8 * np.unique(cand.numpy()).size
                    + 16 * np.unique(q_slots.numpy()).size
-                   + 2 * q_slots.numel()))
-    assert rl.k2_bytes(tcfg, zp5, sp_T, sp_tcx, sp_tcy) == want
+                   + 2 * (q_slots.numel() + n_spills))
+            + 2 * 8 * (written + n_spills))
+    assert rl.k2_bytes(tcfg, zp5, packed_t, rows, sp_tcx, sp_tcy,
+                       vel) == want
 
 
 # ---------------------------------------------------------------------------

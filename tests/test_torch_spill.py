@@ -1,9 +1,9 @@
 """The port's spill repair and spill-window kernel against the JAX package.
 
-K2's plain version (the path CPU tensors take through ``spill_window``)
-against ``_spill_groups_window_pallas`` in interpret mode on rows with a
-live query, and the whole fused pass with the spill patch against the JAX
-``zanlungo_fused`` on the overflowing scene of
+K2's plain version (the path CPU tensors take through ``spill_window``):
+its window rows against ``_spill_groups_window_pallas`` in interpret mode
+on rows with a live query, and the whole fused pass with the spill patch
+against the JAX ``zanlungo_fused`` on the overflowing scene of
 ``test_spill_patch_int_prio_matches_oracle``; both to 2e-4.
 """
 
@@ -55,13 +55,13 @@ def test_spill_window_plain_matches_jax_kernel(int_prio):
                 (pos, vel, pref, spref, prio, eye, rec, alive)))
     assert int(occ) > jcfg.bucket
     s_cap = 64
-    c_sp, sp, sp_tcx, sp_tcy = tspill.spill_rows(
+    c_sp, rows, sp_tcx, sp_tcy = tspill.spill_rows(
         tcfg, *(_t(x) for x in (pos, vel, spref, pref, prio, eye, alive,
                                 rec)),
         _t(bucket_pos), s_cap)
     n_spill = int(c_sp.count)
     assert n_spill > 0
-    sp_T = tspill.spill_candidates(sp)
+    sp_T = tspill.spill_candidates(rows)
     # The JAX kernel reads its spill list lane-padded to 128 (id -1).
     sp_pad = np.zeros((8, 128), np.float32)
     sp_pad[tzb.ROW_ID] = -1.0
@@ -72,7 +72,8 @@ def test_spill_window_plain_matches_jax_kernel(int_prio):
         interpret=True, int_prio=int_prio, packed_T=packed_T))
     got = tspill.spill_window(
         tcfg, tzb.zparams5(torch_params()), _t(packed_t), _t(packed_T),
-        sp_T, sp_tcx, sp_tcy, int_prio=int_prio).numpy()
+        rows, sp_tcx, sp_tcy, torch.zeros((pos.shape[0], 2)),
+        int_prio=int_prio).numpy()[:, :9 * tcfg.bucket]
     q_slots = tspill.window_query_slots(tcfg, sp_tcx, sp_tcy).numpy()
     q_live = (c_sp.valid.numpy()[:, None]
               & (np.asarray(packed_t)[q_slots, tzb.ROW_ID] >= 0))
