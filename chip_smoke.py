@@ -13,9 +13,10 @@ repository beside it).  Phases, each printing its own line:
    the velocity rows it writes, and with its windows off), K1b (force
    with the fused spill segment) and K4 (the dense ``grid_dense`` force
    kernel) to rtol = atol = 2e-4 on live rows with integer priorities
-   on and off; times of both (K2's launch is shorter than its
-   wrapper's host time, so its kernel time is the profiler's device
-   time), each kernel's bound
+   on and off; times of both on CUDA events over back-to-back calls
+   (K2's launch is shorter than its wrapper's host time, so K2 also
+   prints its kernel's device time from the profiler, ``device_ms`` in
+   the JSON line), each kernel's bound
    (``utils/roofline.py``: the bytes and f32 operations that this run's
    inputs need) and its share of it; K1b bitwise K1 on unflagged slots;
    the 1M fused-spill pass against the spill-patch pass on the same
@@ -380,27 +381,28 @@ def main() -> int:
             spill.spill_window(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
                                sp_tcy, vel_k, int_prio=int_prio)
 
-        call_ms, pms = _timed_pair(
+        ms, pms = _timed_pair(
             torch, k2, lambda: spill.spill_window_plain(
                 bcfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy, vel_p,
                 int_prio), 10)
-        ms = _device_ms(torch, k2, 20, "spill_window_kernel")
+        dev_ms = _device_ms(torch, k2, 20, "spill_window_kernel")
         b2 = rl.Bound(rl.k2_bytes(bcfg, zp5, packed_t, rows, sp_tcx, sp_tcy,
                                   vel_k),
                       rl.k2_work(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
                                  sp_tcy).ops(int_prio))
-        t2.append((ms, pms, b2))
+        t2.append((ms, pms, b2, dev_ms))
         print(f"phase 3 K2 spill_window int_prio={int_prio}: {n_spill} "
               f"spills in {config.spill_capacity} slots, {n_live_q} live "
               f"window queries, {n_written} velocity rows written; "
               f"{int(over.item())} list overflows; window rows, own rows, "
               f"written rows and windows off: max abs err {e:.3g} (tol "
-              f"{TOL}); kernel {ms:.4f} ms on the device (profiler; "
-              f"{call_ms:.4f} ms a call on CUDA events, the wrapper's host "
-              f"time), plain {pms:.3f} ms, {bound_text(b2, ms)}",
+              f"{TOL}); kernel {ms:.4f} ms a call (CUDA events, as the "
+              f"other kernels), {dev_ms:.4f} ms on the device (profiler), "
+              f"plain {pms:.3f} ms, {bound_text(b2, ms)}; "
+              f"{100 * b2.ms / dev_ms:.1f}% of bound on the device time",
               flush=True)
     results["spill_window"] = dict(err=err2, ms=t2[0][0], plain_ms=t2[0][1],
-                                   bound=t2[0][2])
+                                   bound=t2[0][2], device_ms=t2[0][3])
 
     # K1b: its spill plane is the first rows of the spill list, as
     # zanlungo_fused takes it.
@@ -686,7 +688,9 @@ def main() -> int:
          "plain_ms": results[name]["plain_ms"],
          "bound_ms": results[name]["bound"].ms,
          "bound_by": results[name]["bound"].bound_by,
-         "library_ms": None}
+         "library_ms": None,
+         **({"device_ms": results[name]["device_ms"]}
+            if "device_ms" in results[name] else {})}
         for name in source
     ]}))
     print(f"card: {card}")

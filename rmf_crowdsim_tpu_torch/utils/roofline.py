@@ -7,7 +7,8 @@ over the H100's 67 TFLOP/s outside the tensor cores.  Where the work
 depends on the data, both count what these inputs need, not the most
 they could: K1's and K4's bytes follow the live slots and rows, K2's the
 live spills and the rows it writes; the operations are one mask test per live (query,
-candidate) pair in the kernel's window, the time to collision for every
+candidate) pair of the query's own 3x3 tiles (and the spill list, where
+the kernel has one), the time to collision for every
 pair that the mask takes, and the force for every such pair of a query
 with a finite time to collision.
 
@@ -187,12 +188,22 @@ def k1b_work(cfg, zp5, packed_t, packed_T, sflag, sp_T,
 
 
 def _k2_windows(cfg, rows, sp_tcx, sp_tcy):
-    """(live spills [P], their window candidate slots [P, 25b], their
-    query slots [P, 9b]), as ``spill.spill_window_plain`` builds them."""
+    """(live spills [P], the slots of the tiles that their window queries'
+    own 3x3 tiles cover [P, 25b] (columns ``qcol - 1 .. qcol + 3``, rows
+    likewise; -1 outside the world), their query slots [P, 9b]).  A mask
+    takes no candidate outside a query's own 3x3 tiles, so the rest of
+    the 5x5 window is no work of the function's."""
+    b, tx, ty = cfg.bucket, cfg.tx, cfg.ty
     live = torch.nonzero(rows[:, zb.ROW_ID] >= 0).squeeze(1)
     tcx, tcy = sp_tcx[live], sp_tcy[live]
-    return (live, _spill.window_candidate_slots(cfg, tcx, tcy),
-            _spill.window_query_slots(cfg, tcx, tcy))
+    _, _, qcol, qrow = _spill._window_geometry(cfg, tcx, tcy)
+    k = torch.arange(-1, 4, device=rows.device)
+    cx = qcol[:, None, None] + k[None, :, None]               # [P, 5, 1]
+    cy = qrow[:, None, None] + k[None, None, :]               # [P, 1, 5]
+    ok = (cx >= 0) & (cx < tx) & (cy >= 0) & (cy < ty)        # [P, 5, 5]
+    slots = (cx * ty + cy)[..., None] * b + torch.arange(b, device=k.device)
+    slots = torch.where(ok[..., None], slots, -1).reshape(-1, 25 * b)
+    return live, slots, _spill.window_query_slots(cfg, tcx, tcy)
 
 
 OWN_F = 5   # spill-row features only the own row reads: rec, eye, self pref
@@ -202,13 +213,20 @@ def k2_bytes(cfg, zp5, packed_t, rows, sp_tcx, sp_tcy, vel) -> int:
     """``zp5`` and the spill tiles; of the spill rows [S, 16], the 8
     candidate features and the 5 more that its own row reads of each live
     spill, the id of each other one; for the live spills only (the other
-    blocks return at once): the distinct candidate slots of their 5x5
-    windows (8 features) and query slots of their 3x3 blocks (16
-    features) in, their [9b + 1, 2] rows of ``out``; and one ``vel`` row
-    for each agent written (each affected window query once, each own
-    row)."""
+    blocks return at once), each distinct slot of the tiles that their
+    window queries' own 3x3 tiles cover once: of a live slot its 8
+    candidate features, and its 11 query features where it is a window
+    query; of an empty slot its id, and its rec where it is a window
+    query (as ``k1_bytes``); their [9b + 1, 2] rows of ``out``; and one
+    ``vel`` row for each agent written (each affected window query once,
+    each own row)."""
     live, cand, q_slots = _k2_windows(cfg, rows, sp_tcx, sp_tcy)
     n_live = live.numel()
+    cand = torch.unique(cand[cand >= 0])
+    q_uniq = torch.unique(q_slots)
+    live_c = int((packed_t[cand, zb.ROW_ID] >= 0).sum())
+    live_q = int((packed_t[q_uniq, zb.ROW_ID] >= 0).sum())
+    empty_q = q_uniq.numel() - live_q
     aff = _spill.affected(cfg, packed_t, rows, sp_tcx, sp_tcy)
     q_id = packed_t[_spill.window_query_slots(cfg, sp_tcx, sp_tcy),
                     zb.ROW_ID]
@@ -216,29 +234,29 @@ def k2_bytes(cfg, zp5, packed_t, rows, sp_tcx, sp_tcy, vel) -> int:
     return (_nbytes(zp5, sp_tcx, sp_tcy)
             + _F32 * ((zb.NUM_CAND + OWN_F) * n_live
                       + rows.shape[0] - n_live
-                      + zb.NUM_CAND * torch.unique(cand).numel()
-                      + zb.NUM_F * torch.unique(q_slots).numel()
+                      + zb.NUM_CAND * live_c + (cand.numel() - live_c)
+                      + QUERY_F * live_q + (EMPTY_F - 1) * empty_q
                       + OUT_F * (q_slots.numel() + n_live))
             + OUT_F * vel.element_size() * written)
 
 
 def k2_work(cfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy,
             chunk: int = 32) -> Work:
-    """Each live spill's 3x3 queries against its 5x5 window followed by
-    the spill list (the JAX contract's work, whatever walks it), and its
-    own row against its 3x3 block followed by the list (counted at the
-    pair math's costs)."""
-    live, cand, q_slots = _k2_windows(cfg, rows, sp_tcx, sp_tcy)
+    """Each live spill's window queries against the live slots of their
+    own 3x3 tiles followed by the spill list (the contract's window,
+    less the candidates no mask can take), and its own row against its
+    3x3 block followed by the list (counted at the pair math's costs)."""
+    live, _, q_slots = _k2_windows(cfg, rows, sp_tcx, sp_tcy)
     sp_T = _spill.spill_candidates(rows)
     work = Work()
     for lo in range(0, live.shape[0], chunk):
         sl = slice(lo, lo + chunk)
-        spl = sp_T[:, None, :].expand(-1, cand[sl].shape[0], -1)
-        for q, cf in (
-                (packed_t[q_slots[sl]], packed_T[:, cand[sl]]),
-                (rows[live[sl]][:, None, :], packed_T[:, q_slots[sl]])):
-            work += _pair_work(zp5, zb.query_features(q),
-                               zb.candidate_features(torch.cat([cf, spl], 2)))
+        work += _slot_work(cfg, zp5, packed_t, packed_T,
+                           q_slots[sl].reshape(-1), sp_T)
+        spl = sp_T[:, None, :].expand(-1, q_slots[sl].shape[0], -1)
+        cf = torch.cat([packed_T[:, q_slots[sl]], spl], 2)
+        work += _pair_work(zp5, zb.query_features(rows[live[sl]][:, None, :]),
+                           zb.candidate_features(cf))
     return work
 
 

@@ -138,16 +138,36 @@ def test_k1b_and_k2_work_on_an_overflowing_scene():
 
     k2 = rl.k2_work(tcfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy)
     assert k2.tests >= k2.pairs >= k2.forced > 0
-    # The own rows: each live spill against the live slots of its 3x3
-    # block and the other live spills.
-    _, cand, q_slots = rl._k2_windows(tcfg, rows, sp_tcx, sp_tcy)
-    assert cand.shape[0] == q_slots.shape[0] == n_spills
-    live_q = (packed_t[q_slots, tzb.ROW_ID] >= 0).sum(1)
-    live_c = (packed_t[cand, tzb.ROW_ID] >= 0).sum(1)
-    assert k2.tests == int((live_q * (live_c + n_spills)).sum()
-                           + (live_q + n_spills).sum())
-    # K2's bytes: only the live spills' windows, each slot once; the spill
-    # rows by need; out's rows; each written vel row once.
+    # Each live window query against the live slots of its own 3x3 tiles
+    # (in the world) and the live spills; each own row against the live
+    # slots of its 3x3 block and the live spills.
+    b, tx, ty = tcfg.bucket, tcfg.tx, tcfg.ty
+    slot_live = (packed_t[:, tzb.ROW_ID] >= 0).numpy()
+    occ = np.pad(slot_live.reshape(tx, ty, b).sum(-1), 1)
+    near = sum(occ[1 + dx:1 + dx + tx, 1 + dy:1 + dy + ty]
+               for dx in (-1, 0, 1) for dy in (-1, 0, 1)).reshape(-1)
+    live_sp = (rows[:, tzb.ROW_ID] >= 0).numpy()
+    q_slots = tspill.window_query_slots(tcfg, sp_tcx, sp_tcy)[live_sp]
+    q_slots = q_slots.numpy()
+    assert q_slots.shape[0] == n_spills
+    q_live = slot_live[q_slots]
+    assert k2.tests == int((q_live * (near[q_slots // b] + n_spills)).sum()
+                           + (q_live.sum(1) + n_spills).sum())
+    # K2's bytes: each slot of the tiles the window queries' own 3x3
+    # tiles cover once (8 candidate features of a live slot, the id of an
+    # empty one; 11 query features of a live window query, the rec of an
+    # empty one); the spill rows by need; out's rows; each written vel
+    # row once.
+    tcx, tcy = sp_tcx.numpy()[live_sp], sp_tcy.numpy()[live_sp]
+    cover = set()
+    for cx0, cy0 in zip(np.clip(tcx - 1, 0, tx - 3) - 1,
+                        np.clip(tcy - 1, 0, ty - 3) - 1):
+        for cx in range(max(cx0, 0), min(cx0 + 5, tx)):
+            for cy in range(max(cy0, 0), min(cy0 + 5, ty)):
+                cover.update(range((cx * ty + cy) * b, (cx * ty + cy + 1) * b))
+    cover = np.array(sorted(cover))
+    q_uniq = np.unique(q_slots)
+    assert np.isin(q_uniq, cover).all() and cover.size < 25 * b * n_spills
     aff = tspill.affected(tcfg, packed_t, rows, sp_tcx, sp_tcy)
     q_all = tspill.window_query_slots(tcfg, sp_tcx, sp_tcy)
     written = np.unique(packed_t[q_all, tzb.ROW_ID][aff].numpy()).size
@@ -156,9 +176,10 @@ def test_k1b_and_k2_work_on_an_overflowing_scene():
     vel = torch.zeros((pos.shape[0], 2), dtype=torch.float64)
     want = (4 * (5 + 2 * s)
             + 4 * (13 * n_spills + (s - n_spills)
-                   + 8 * np.unique(cand.numpy()).size
-                   + 16 * np.unique(q_slots.numpy()).size
-                   + 2 * (q_slots.numel() + n_spills))
+                   + 8 * slot_live[cover].sum() + (~slot_live[cover]).sum()
+                   + 11 * slot_live[q_uniq].sum()
+                   + 2 * (~slot_live[q_uniq]).sum()
+                   + 2 * (q_slots.size + n_spills))
             + 2 * 8 * (written + n_spills))
     assert rl.k2_bytes(tcfg, zp5, packed_t, rows, sp_tcx, sp_tcy,
                        vel) == want
