@@ -39,11 +39,22 @@ repository beside it).  Phases, each printing its own line:
    just after; zero truncation, finite state, no agent lost, and every
    kernel of the path launched; then its host syncs per step, counted,
    and its kernel launches and device time per step (``torch.profiler``
-   over 3 steps).
+   over 3 steps);
+6. the measurement probes (``rmf_crowdsim_tpu_torch/probes``), which no
+   path of the simulator runs: each probe kernel against its plain
+   version on the card (K1's stage cuts bitwise on the 1M plane, ``full``
+   also bitwise the main K1 and at K4's thread rule; the chained 0/1
+   product bitwise in bf16, s8, tf32 and f32 at 1, 2 and 3 steps; the
+   transposes and the feature-plane writers bitwise), then the probes'
+   own timing runs with their launch counts set to 0 just before and read
+   just after, every probe kernel launched; the stage table and the
+   product and plane times, with the card's name and power limit.
 
-Then one JSON line of per-kernel results (``library_ms`` is null for all
-five: no single PyTorch call computes any of them), the card's line, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failure raises.
+Then one JSON line of per-kernel results (``library_ms`` is null for the
+five simulator kernels, as no single PyTorch call computes any of them,
+and for the probe kernels without one; each probe row also has its
+``share`` of its bound), the card's line, and as the last line
+``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -58,21 +69,6 @@ N_GATE = 4096
 DT = 1.0 / 60.0
 TOL = 2e-4
 K4_REWALK_CLUSTER = 60
-
-
-def _cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls
-    (CUDA events, after one warm-up call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _device_ms(torch, fn, reps: int, kernel: str) -> float:
@@ -99,11 +95,13 @@ def _device_ms(torch, fn, reps: int, kernel: str) -> float:
 
 def _timed_pair(torch, kernel, plain, reps: int):
     """(kernel ms, plain ms), measured in turns kernel, plain, plain,
-    kernel and averaged."""
-    k1 = _cuda_ms(torch, kernel, reps)
-    p1 = _cuda_ms(torch, plain, reps)
-    p2 = _cuda_ms(torch, plain, reps)
-    k2 = _cuda_ms(torch, kernel, reps)
+    kernel and averaged (CUDA events over ``reps`` back-to-back calls)."""
+    from rmf_crowdsim_tpu_torch.utils.profile_step import cuda_ms
+
+    k1 = cuda_ms(kernel, reps)
+    p1 = cuda_ms(plain, reps)
+    p2 = cuda_ms(plain, reps)
+    k2 = cuda_ms(kernel, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -274,6 +272,141 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     return launches
 
 
+def _ptxas_registers(log: str, kernel: str) -> dict:
+    """{mangled name: ptxas's "Used ..." and stack-frame lines} of the
+    kernels in the build log whose name holds ``kernel``."""
+    found, name, stack = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and name and kernel in name:
+            found[name] = f"{line.split('Used', 1)[1].strip()}; {stack}"
+            name = None
+    return found
+
+
+def _probes(torch, dev, card, rl) -> list:
+    """Phase 6: the measurement probes.  Checks each probe kernel against
+    its plain version, then runs the probes' timing entry points with the
+    launch counts set to 0 just before and read just after.  Returns the
+    rows of the kernels JSON line."""
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.ops import pack
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.probes import k1_stages, mma_chain, planes
+    from rmf_crowdsim_tpu_torch.utils import cuda_build
+
+    t0 = time.perf_counter()
+    regs = _ptxas_registers(cuda_build.build_log(), "zanlungo_bucketed_kernel")
+    for name, used in sorted(regs.items()):
+        print(f"phase 6 ptxas {name}: {used}")
+    _, cfg, params, *_, feat_t, bpos, _ = scenes.bench_bucketed(N_MAIN,
+                                                                device=dev)
+    packed_t, packed_T, _ = pack.pack_rows(feat_t, bpos, cfg.slots)
+    zp5 = zb.zparams5(params.lp[0])
+    n_live = int((packed_T[zb.ROW_ID] >= 0).sum())
+    k4_threads = k1_stages.k4_rule_threads(cfg, n_live)
+    errs = k1_stages.check(cfg, zp5, packed_t, packed_T, k4_threads)
+    for stage, (err, differ) in errs.items():
+        how = "bitwise" if not differ else (
+            f"{differ} slots differ in the last bits (the plain TTC "
+            f"rounds op by op), within 2e-4 relative")
+        if stage == "full":
+            how = (f"bitwise the main K1, also at {k4_threads} threads; "
+                   f"max abs err {err:.3g} against the plain version (tol "
+                   f"{TOL})")
+        print(f"phase 6 P1/P2 k1_stage {stage}: {N_MAIN} agents, "
+              f"{n_live} live slots of {cfg.slots}: {how}", flush=True)
+    n_mma = mma_chain.check(dev)
+    n_planes = planes.check(dev)
+    print(f"phase 6 P3 mma_chain: {n_mma} cases bitwise (bf16, s8, tf32, "
+          f"f32; both shapes; 1, 2, 3 steps); P4 planes: {n_planes} cases "
+          f"bitwise", flush=True)
+
+    wrappers = {"k1_stage": k1_stages.k1_stage,
+                "mma_chain": mma_chain.mma_chain,
+                "transpose": planes.transpose,
+                "write_columns": planes.write_columns,
+                "rebuild": planes.rebuild, "write_rows": planes.write_rows}
+    for fn in wrappers.values():
+        fn.launches = 0
+    k1_rows = k1_stages.measure(cfg, zp5, packed_t, packed_T)
+    mma_rows = mma_chain.measure(dev)
+    plane_rows = planes.measure(dev)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the probes never launched {missing}")
+    # A transpose's launch is shorter than its wrapper's host time: its
+    # device time from the profiler, as K2's.
+    src = torch.rand((8, 128), device=dev)
+    t_dev = {f"transpose [{r},{c}]": _device_ms(
+        torch, lambda: planes.transpose(src[:r], c), 20, "transpose_kernel")
+        for r, c in planes.TRANSPOSES}
+    print(k1_stages.stage_table(k1_rows, card))
+    print(f"phase 6 P3 chained 0/1 products on '{card}', "
+          f"{mma_chain.ITERS} steps a call:")
+    for shape, dtype, ms, pms, lib, bms, *_ in mma_rows:
+        lib_text = "none" if lib is None else f"{1e6 * lib:.1f} ns"
+        print(f"  {shape:10s} {dtype:4s}: {1e6 * ms:.1f} ns/product, bound "
+              f"{1e6 * bms:.3f} ns at the {dtype} peak; plain "
+              f"{1e6 * pms:.1f} ns; one torch link {lib_text}")
+    print(f"phase 6 P4 transposes and plane writers on '{card}':")
+    for name, size, ms, pms, lib, b, *_ in plane_rows:
+        lib_text = "none" if lib is None else f"{lib:.4f} ms"
+        dev_text = (f" ({t_dev[name]:.4f} ms on the device)"
+                    if name in t_dev else "")
+        print(f"  {name:18s} {size:18s}: {ms:.4f} ms{dev_text}, bound "
+              f"{b.ms:.6f} ms ({b.bytes} B), {100 * b.ms / ms:.1f}% of "
+              f"bound; plain {pms:.4f} ms; one torch call {lib_text}")
+    print(f"phase 6 probes: launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    def row(name, source, replaces, n, err, ms, pms, bms, by, lib, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"rmf_crowdsim_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib, "share": bms / ms, **extra}
+
+    rows = []
+    off = {(s, t): (ms, n, err)
+           for s, p, t, ms, _, _, n, err in k1_rows if not p}
+    for stage, int_prio, threads, ms, pms, b, n, err in k1_rows:
+        if not int_prio:
+            continue
+        name = f"k1_stage_{stage}" + (f"_{threads}threads" if threads else "")
+        ms_off, n_off, err_off = off[stage, threads]
+        rows.append(row(name, "k1_stages.cu",
+                        "perf/kvar.py:270; perf/kvar2.py:311",
+                        n, err, ms, pms, b.ms, b.bound_by, None,
+                        ms_int_prio_off=ms_off, launches_int_prio_off=n_off,
+                        max_abs_err_int_prio_off=err_off))
+    for shape, dtype, ms, pms, lib, bms, b, n, err in mma_rows:
+        rows.append(row(f"mma_chain_{shape}_{dtype}", "mma_chain.cu",
+                        "perf/onehot_int8_probe.py:54", n, err, ms, pms, bms,
+                        b.bound_by, lib, per="product"))
+    replaces = {"transpose [8,128]": "perf/transpose_probe.py:59",
+                "transpose [8,64]": "perf/transpose_probe.py:73"}
+    for name, size, ms, pms, lib, b, n, err in plane_rows:
+        rows.append(row(f"{name} {size}".replace(" ", "_"), "plane_probe.cu",
+                        replaces.get(name, "perf/transpose_probe.py:83"),
+                        n, err, ms, pms, b.ms, b.bound_by, lib,
+                        **({"device_ms": t_dev[name]} if name in t_dev
+                           else {})))
+    # P3 and P4 are bitwise at the timed sizes too (P3 at 4,000 steps).
+    bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0
+           and not r["name"].startswith("k1_stage")]
+    if bad:
+        raise AssertionError(f"timed probe outputs differ from their plain "
+                             f"versions: {bad}")
+    del packed_t, packed_T, feat_t
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -392,7 +525,8 @@ def main() -> int:
                                  sp_tcy).ops(int_prio))
         t2.append((ms, pms, b2, dev_ms))
         print(f"phase 3 K2 spill_window int_prio={int_prio}: {n_spill} "
-              f"spills in {config.spill_capacity} slots, {n_live_q} live "
+              f"spills in {rows.shape[0]} slots (spill_capacity "
+              f"{config.spill_capacity}), {n_live_q} live "
               f"window queries, {n_written} velocity rows written; "
               f"{int(over.item())} list overflows; window rows, own rows, "
               f"written rows and windows off: max abs err {e:.3g} (tol "
@@ -667,16 +801,18 @@ def main() -> int:
         del rollout, params, st
         torch.cuda.empty_cache()
 
+    probe_rows = _probes(torch, dev, card, rl)
+
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
                       "rmf_crowdsim_tpu/ops/pack_pallas.py:206"),
         "zanlungo_bucketed": (
-            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cu",
+            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cuh",
             "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1348"),
         "spill_window": ("rmf_crowdsim_tpu_torch/csrc/spill_window.cu",
                          "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1867"),
         "zanlungo_bucketed_spill": (
-            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cu",
+            "rmf_crowdsim_tpu_torch/csrc/zanlungo_bucketed.cuh",
             "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1403"),
         "zanlungo_dense": ("rmf_crowdsim_tpu_torch/csrc/zanlungo_dense.cu",
                            "rmf_crowdsim_tpu/ops/zanlungo_dense.py:878"),
@@ -692,7 +828,7 @@ def main() -> int:
          **({"device_ms": results[name]["device_ms"]}
             if "device_ms" in results[name] else {})}
         for name in source
-    ]}))
+    ] + probe_rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,6 @@
 // The compacted stage and the per-query neighbour list shared by the
 // kernels that stage bucketed candidates in shared memory: K1 and K1b
-// (zanlungo_bucketed.cu) and K2 (spill_window.cu).
+// (zanlungo_bucketed.cuh) and K2 (spill_window.cu).
 //
 // A block stages candidate slots with the empty ones (id < 0) removed and
 // the order kept: one ballot word per 32 staged slots and an exclusive
@@ -69,12 +69,18 @@ __device__ __forceinline__ void walk(const Query& q, const float4* P,
   }
 }
 
+// Where list_velocity stops: after the mask pass, after the TTC pass, or
+// at the velocity.  The cuts serve the K1 stage probe (k1_stages.cu); a
+// cut returns what it computed, so that no pass it runs is dead.
+constexpr int LIST_MASK = 3, LIST_TTC = 4, LIST_FULL = 5;
+
 // rec + F / m of the live query q over the candidates of its ranges that
 // its mask takes: one mask pass into the list (entry m at list[m *
 // stride]), then the TTC and force passes over the list, or over the
 // ranges again where the hits overflow it (counted in *overflow where
-// that is given).  V[j] = (vx, vy, fx, fy).
-template <bool INT_PRIO, int NR>
+// that is given).  V[j] = (vx, vy, fx, fy).  STAGE LIST_MASK returns
+// (hits, 1 if they overflow the list else 0), LIST_TTC (t_i, hits).
+template <bool INT_PRIO, int STAGE = LIST_FULL, int NR>
 __device__ __forceinline__ float2 list_velocity(
     const Query& q, const Params& zp, const float4* P, const float4* V,
     const int (&lo)[NR], const int (&hi)[NR], unsigned short* list,
@@ -86,6 +92,9 @@ __device__ __forceinline__ float2 list_velocity(
   });
   const bool over = n > LIST_CAP;
   if (over && overflow != nullptr) atomicAdd(overflow, 1);
+  if constexpr (STAGE == LIST_MASK) {
+    return make_float2((float)n, over ? 1.f : 0.f);
+  }
 
   float t_i = CUDART_INF_F;
   auto ttc = [&](int j) {
@@ -97,6 +106,9 @@ __device__ __forceinline__ float2 list_velocity(
     walk(q, P, lo, hi, ttc);
   } else {
     for (int m = 0; m < n; ++m) ttc(list[m * stride]);
+  }
+  if constexpr (STAGE == LIST_TTC) {
+    return make_float2(t_i, (float)n);
   }
 
   float2 o = make_float2(q.rx, q.ry);

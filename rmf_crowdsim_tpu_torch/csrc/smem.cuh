@@ -1,5 +1,5 @@
 // Shared-memory set-up of the kernels that stage their candidates in
-// shared memory (K1 and K1b in zanlungo_bucketed.cu, K4 in
+// shared memory (K1 and K1b in zanlungo_bucketed.cuh, K4 in
 // zanlungo_dense.cu).
 #pragma once
 

@@ -32,7 +32,7 @@
 // candidate row, and did so twice (the TTC pass, then the force pass
 // repeating every mask test): ~2 x 200 masked tests per query for ~157
 // true candidates and ~9 neighbours, the rows read ~4 times.  This design
-// takes K1's answers (csrc/zanlungo_bucketed.cu):
+// takes K1's answers (csrc/zanlungo_bucketed.cuh):
 //   1. Staging.  One block per (tile column c, run of T tile rows): its
 //      queries are the rows of tiles (c, t0 .. t0+T-1) with rank below
 //      col_cap, its candidates the rows of tiles t0-1 .. t0+T of columns

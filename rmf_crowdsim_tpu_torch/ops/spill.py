@@ -13,7 +13,8 @@ then recomputes, per spill, the queries of its 3x3 tile block against its
 5x5 window plus the whole spill list, and the spill's own row against the
 3x3 block plus the list (in the models/local math, as the JAX package
 keeps it), and writes the affected rows into the velocities itself, in
-one launch over all ``spill_capacity`` slots (invalid slots
+one launch over all slots of the spill list (``spill_capacity`` rounded
+up to whole chunks of 16, as the JAX package rounds it; invalid slots
 return at once).  Where the JAX package picks a spill-count tier and
 skips clean steps with ``lax.cond`` (zanlungo_pallas.py:1583-1604), the
 port pays one launch and no host read.  ``spill_flags`` marks the force
@@ -73,22 +74,32 @@ def window_candidate_slots(cfg: BucketConfig, sp_tcx, sp_tcy) -> torch.Tensor:
             + torch.arange(5 * b, device=dev)).reshape(-1, 25 * b)
 
 
+def spill_list_size(spill_capacity: int) -> int:
+    """Slots of the spill list: ``spill_capacity`` rounded up to whole
+    chunks of ``min(16, spill_capacity)``, as the JAX package sizes it
+    (zanlungo_pallas.py:1477-1479)."""
+    cap = int(spill_capacity)
+    chunk = max(1, min(16, cap))
+    return -(-cap // chunk) * chunk
+
+
 def spill_rows(cfg: BucketConfig, position, velocity, self_pref,
                pref_committed, priority, eyesight, alive, rec_vel,
                bucket_pos, spill_capacity: int, tile_xy=None):
-    """The first ``spill_capacity`` spills (alive agents without a bucket
-    slot), found without a host read.  Returns (compaction, rows [S,
-    NUM_F] f32 in the packed-row layout — position, velocity, committed
-    preference, priority, id (the agent index, -1 on invalid slots), rec,
-    eyesight, self preference; rows 13-15 zero, as the JAX package builds
-    them at zanlungo_pallas.py:2057-2071 — , sp_tcx [S] int32, sp_tcy [S]
-    int32; 1 on invalid slots).  ``tile_xy``: carried tiles (tcx, tcy),
-    else fresh ones.  The compaction fills in order, so the first k rows
-    are the list of the first k spills."""
+    """The first ``S = spill_list_size(spill_capacity)`` spills (alive
+    agents without a bucket slot), found without a host read.  Returns
+    (compaction, rows [S, NUM_F] f32 in the packed-row layout — position,
+    velocity, committed preference, priority, id (the agent index, -1 on
+    invalid slots), rec, eyesight, self preference; rows 13-15 zero, as
+    the JAX package builds them at zanlungo_pallas.py:2057-2071 — , sp_tcx
+    [S] int32, sp_tcy [S] int32; 1 on invalid slots).  ``tile_xy``:
+    carried tiles (tcx, tcy), else fresh ones.  The compaction fills in
+    order, so the first k rows are the list of the first k spills; its
+    ``n_over`` counts the spills past the S slots."""
     n = position.shape[0]
     f32 = torch.float32
     c_sp = compact_indices(alive & (bucket_pos >= cfg.slots),
-                           int(spill_capacity))
+                           spill_list_size(spill_capacity))
     valid = c_sp.valid
     s_cap = valid.shape[0]
     sc = torch.clamp(c_sp.idx, 0, n - 1).long()

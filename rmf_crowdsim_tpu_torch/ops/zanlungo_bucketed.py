@@ -472,10 +472,10 @@ def pair_mask(q: dict, c: dict) -> torch.Tensor:
 K1_TILES_PER_BLOCK = 15
 
 # Entries of a query's neighbour list in K1/K1b (LIST_CAP in
-# csrc/zanlungo_bucketed.cu); a query with more hits re-walks its window.
+# csrc/neighbour_list.cuh); a query with more hits re-walks its window.
 K1_LIST_CAP = 32
 
-# Most threads of a K1/K1b block (MAX_THREADS in the .cu).
+# Most threads of a K1/K1b block (MAX_THREADS in csrc/zanlungo_bucketed.cuh).
 K1_MAX_THREADS = 512
 
 # Shared memory one block of the H100 can take.
@@ -499,10 +499,10 @@ def _align16(x: int) -> int:
 
 
 def k1_geometry(cfg: BucketConfig, tiles_per_block: int = K1_TILES_PER_BLOCK,
-                n_sp: int = 0) -> K1Geometry:
+                n_sp: int = 0, threads: int | None = None) -> K1Geometry:
     """K1's (``n_sp`` = 0) or K1b's launch geometry.  The kernel takes
     ``tiles`` and ``threads`` and lays out its shared memory itself
-    (``make_layout`` in ``csrc/zanlungo_bucketed.cu``); ``smem_bytes``
+    (``make_layout`` in ``csrc/zanlungo_bucketed.cuh``); ``smem_bytes``
     mirrors that layout so that a block the card cannot hold is refused
     here, before the launch: the
     compacted stage (NUM_CAND f32 for each of 3 (T+2) bucket window
@@ -510,11 +510,16 @@ def k1_geometry(cfg: BucketConfig, tiles_per_block: int = K1_TILES_PER_BLOCK,
     neighbour lists [K1_LIST_CAP, threads] uint16, the live-query slots
     [T bucket] uint16 and a counter.
     Threads: half the block's slots (the bench scene fills 54% of them),
-    rounded up to a warp.  Raises if the block needs more than the
-    H100's 232,448 bytes."""
+    rounded up to a warp, unless the caller gives them (the stage probe
+    times another rule).  Raises if the block needs more than the H100's
+    232,448 bytes."""
     b = cfg.bucket
     tiles = max(1, min(int(tiles_per_block), cfg.ty))
-    threads = min(K1_MAX_THREADS, max(32, -(-tiles * b // 64) * 32))
+    if threads is None:
+        threads = min(K1_MAX_THREADS, max(32, -(-tiles * b // 64) * 32))
+    elif not (32 <= threads <= K1_MAX_THREADS and threads % 32 == 0):
+        raise ValueError(f"K1: {threads} threads a block; a multiple of 32 "
+                         f"up to {K1_MAX_THREADS} is needed")
     cols = 3 * (tiles + 2) * b
     row = cols + n_sp
     chunks = -(-cols // 32)
@@ -725,8 +730,10 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
     so no agent can lose its slot to pack overflow and the JAX package's
     ``_fix_pack_dropped`` branch has nothing to fix.
 
-    With ``spill_capacity > 0`` the first ``spill_capacity`` spills are
-    listed once (``spill.spill_rows``) and K2 (``spill.spill_window``)
+    With ``spill_capacity > 0`` the first ``spill_capacity`` spills,
+    rounded up to whole chunks of 16 as the JAX package's ``spill_patch``
+    rounds its list, are listed once (``spill.spill_rows``) and K2
+    (``spill.spill_window``)
     writes their own rows and, on the spill-patch path, every affected
     window row into ``vel``.  ``fused_spills`` (on a >= 5x5-tile world):
     the first ``min(128, spill_capacity)`` of them ride K1b as a fourth
@@ -760,7 +767,8 @@ def zanlungo_fused(cfg: BucketConfig, zp, position, velocity, self_pref,
                    and cfg.tx >= 5 and cfg.ty >= 5)
     if use_fsp:
         # Fused-spill discovery (zanlungo_pallas.py:2158-2205): the first
-        # min(128, spill_capacity) spills are K1b's spill plane.
+        # min(128, spill_capacity) spills are K1b's spill plane, not
+        # rounded to the list's chunks (the JAX package's fused_cap).
         n_fused = min(FUSED_SPILL_LANES, int(spill_capacity))
         out = zanlungo_forces_bucketed_spill(
             cfg, zp5, packed_t, packed_T,

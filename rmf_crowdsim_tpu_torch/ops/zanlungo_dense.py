@@ -209,6 +209,12 @@ def _ceil32(x: float) -> int:
     return int(math.ceil(x / 32.0)) * 32
 
 
+def query_threads(queries: float) -> int:
+    """K4's threads a block for ``queries`` mean live queries a block:
+    1.125 times as many, rounded up to a warp, 64 to 512."""
+    return min(K4_MAX_THREADS, max(64, _ceil32(1.125 * queries)))
+
+
 def k4_smem_bytes(stage_rows: int, threads: int) -> int:
     """K4's shared memory a block, as ``dense_layout`` in
     ``csrc/zanlungo_dense.cu`` lays it out: the stage, two float4 arrays
@@ -231,7 +237,7 @@ def k4_geometry(cfg: DenseConfig, n_rows: int,
     the H100's 232,448 bytes."""
     tiles = max(1, min(int(tiles_per_block), cfg.ty))
     m = n_rows / cfg.n_tiles
-    threads = min(K4_MAX_THREADS, max(64, _ceil32(1.125 * tiles * m)))
+    threads = query_threads(tiles * m)
     if stage_rows is None:
         stage_rows = min(K4_MAX_STAGE,
                          max(256, _ceil32(1.25 * 3 * (tiles + 2) * m)))

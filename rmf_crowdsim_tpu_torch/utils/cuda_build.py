@@ -46,6 +46,11 @@ SIGNATURES = {
     "crowdsim_zanlungo_bucketed_spill": "pppppppiiiiiiii",
     "crowdsim_spill_window": "ppppppppppiiiiii",
     "crowdsim_zanlungo_dense": "pppppiiiiiii",
+    # The measurement probes (probes/).
+    "crowdsim_k1_stage": "pppppiiiiiii",
+    "crowdsim_mma_chain": "ppppiiiii",
+    "crowdsim_transpose": "ppiii",
+    "crowdsim_plane_write": "pppppppppiii",
 }
 
 

@@ -59,6 +59,21 @@ def time_steps(n: int, steps: int, **scene) -> dict:
                 truncated=int(counters.neighbor_truncated.max()))
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA
+    events, after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def device_kernels(run, steps: int, top: int = 15) -> dict:
     """Calls ``run()`` (``steps`` steps, ending in a synchronize) under
     ``torch.profiler``: device time and kernel launches per step, and the

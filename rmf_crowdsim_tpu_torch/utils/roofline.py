@@ -34,6 +34,10 @@ from ..ops import zanlungo_dense as zd
 
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# Dense tensor-core peaks of the H100 SXM (NVIDIA's data sheet), by the
+# input type of the product; f32 runs on the FFMA units.
+TENSOR_OPS_PER_S = {"bf16": 989e12, "tf32": 495e12, "s8": 1979e12,
+                    "f32": F32_OPS_PER_S}
 
 MASK_OPS = 11                           # pair_mask
 TTC_OPS = 37                            # pair_ttc and the running min
@@ -51,6 +55,7 @@ class Bound:
 
     bytes: int
     ops: int = 0
+    ops_per_s: float = F32_OPS_PER_S
 
     @property
     def bytes_ms(self) -> float:
@@ -58,7 +63,7 @@ class Bound:
 
     @property
     def ops_ms(self) -> float:
-        return 1e3 * self.ops / F32_OPS_PER_S
+        return 1e3 * self.ops / self.ops_per_s
 
     @property
     def ms(self) -> float:
@@ -307,3 +312,72 @@ def k4_work(cfg, zp5, feat, tile_start,
         work += _pair_work(zp5, q, c)
     return work
 
+
+# ---------------------------------------------------------------------------
+# The probes: K1's stage cuts (P1/P2), the 0/1 product chain (P3), the
+# transposes and feature-plane writers (P4)
+# ---------------------------------------------------------------------------
+
+# Query features each cut of K1 reads from a live query's packed_t row:
+# the mask its position, eyesight and id; the TTC also its velocity.
+MASK_QF = 4
+TTC_QF = 6
+
+
+def k1_stage_bytes(cfg, n_live: int, stage: str) -> int:
+    """What cut ``stage`` of K1 (``probes/k1_stages.py``) must move with
+    ``n_live`` live slots.  ``floor``: every slot's rec in, its output row
+    out.  ``queries``: every slot's id too.  From ``stage`` on, an empty
+    slot moves its id, rec and output row, and a live one its 8 candidate
+    features (its id among them) and its output row, plus from ``mask``
+    on the query features that the passes read (``MASK_QF``, ``TTC_QF``;
+    ``ttc`` also ``zp5``); ``full`` is :func:`k1_bytes`."""
+    n_live = int(n_live)
+    if stage == "floor":
+        return _F32 * cfg.slots * (2 + OUT_F)
+    if stage == "queries":
+        return _F32 * cfg.slots * (1 + 2 + OUT_F)
+    if stage == "full":
+        return k1_bytes(cfg, n_live)
+    query_f = {"stage": 0, "mask": MASK_QF, "ttc": TTC_QF}[stage]
+    return _F32 * ((5 if stage == "ttc" else 0)
+                   + (cfg.slots - n_live) * (EMPTY_F + OUT_F)
+                   + n_live * (zb.NUM_CAND + query_f + OUT_F))
+
+
+def k1_stage_ops(work: Work, stage: str, int_prio: bool) -> int:
+    """The operations of the passes cut ``stage`` runs on ``work``
+    (:func:`k1_work`): none before the mask pass, then the mask tests,
+    the times to collision, and the forces."""
+    if stage in ("floor", "queries", "stage"):
+        return 0
+    if stage == "mask":
+        return work.tests * MASK_OPS
+    if stage == "ttc":
+        return work.tests * MASK_OPS + work.pairs * TTC_OPS
+    return work.ops(int_prio)
+
+
+def mma_bound(m: int, k: int, n: int, dtype: str, iters: int = 1) -> Bound:
+    """``iters`` chained [m, k] @ [k, n] products (``probes/
+    mma_chain.py``): 2 m k n operations each at the dense peak of
+    ``dtype`` (``TENSOR_OPS_PER_S``); x and w read once, the bits and the
+    last product written once, all f32.  This is the card's rate, not the
+    chain's: each product waits for the one before, so the chain is bound
+    by the latency of its dependent instructions, far above this."""
+    return Bound(_F32 * (m * k + k * n + 2 * m * n), 2 * m * k * n * iters,
+                 TENSOR_OPS_PER_S[dtype])
+
+
+def plane_bytes(kind: str, slots: int, k: int = 8) -> int:
+    """The feature-plane writers (``probes/planes.py``): ``columns`` and
+    ``rows`` read ``k`` [slots] vectors and write ``k`` floats a slot;
+    ``rebuild`` reads 8 vectors and writes 16 floats a slot."""
+    if kind == "rebuild":
+        return _F32 * slots * (8 + zb.NUM_F)
+    return _F32 * slots * 2 * k
+
+
+def transpose_bytes(rows: int, cols: int) -> int:
+    """A [rows, cols] block read once and written once, transposed."""
+    return _F32 * 2 * rows * cols

@@ -226,3 +226,69 @@ def test_k1_geometry_raises_when_a_block_cannot_fit():
     with pytest.raises(ValueError, match="exceed 232448"):
         tzb.k1_geometry(types.SimpleNamespace(tx=239, ty=240, bucket=32),
                         n_sp=8192)
+
+
+def test_k1_stage_bytes_at_the_1m_bench_config():
+    """Each cut of K1 (the stage probe) at 1,000,000 live slots of
+    1,835,520: floor the rec rows in and the output out (4 floats a
+    slot), queries each slot's id too (5); from stage on an empty slot
+    moves 5 floats and a live one its 8 candidate features and output
+    (10), the mask 4 query features more (14), the TTC 6 (16) and zp5;
+    full is K1's 100,710,420."""
+    cfg = scenes.bench_bucket_config(1_000_000)
+    want = {"floor": 4 * 4 * cfg.slots, "queries": 4 * 5 * cfg.slots,
+            "stage": 4 * (835_520 * 5 + 1_000_000 * 10),
+            "mask": 4 * (835_520 * 5 + 1_000_000 * 14),
+            "ttc": 4 * (5 + 835_520 * 5 + 1_000_000 * 16),
+            "full": 100_710_420}
+    got = {s: rl.k1_stage_bytes(cfg, 1_000_000, s) for s in want}
+    assert got == want
+    assert got["floor"] == 29_368_320 and got["ttc"] == 80_710_420
+    assert list(got.values()) == sorted(got.values())
+
+
+def test_k1_stage_ops_follow_the_passes():
+    cfg = tzb.BucketConfig.create(24.0, 24.0, (0.0, 0.0), 3.0, bucket=16,
+                                  strip_tiles=6, sub_tiles=6)
+    pos, vel, self_pref, pref_c, prio, eye, alive, rec = (
+        torch.as_tensor(x) for x in random_scene(3, 96, 24.0, 3.0))
+    packed_t, packed_T, _, _, _ = tzb.bucketize(
+        cfg, pos, vel, pref_c, self_pref, prio, eye, rec, alive)
+    zp5 = tzb.zparams5(torch_params())
+    work = rl.k1_work(cfg, zp5, packed_t, packed_T)
+    assert work.tests > work.pairs > work.forced > 0
+    for stage in ("floor", "queries", "stage"):
+        assert rl.k1_stage_ops(work, stage, True) == 0
+    assert rl.k1_stage_ops(work, "mask", True) == 11 * work.tests
+    assert rl.k1_stage_ops(work, "ttc", False) == (11 * work.tests
+                                                   + 37 * work.pairs)
+    for int_prio in (True, False):
+        assert rl.k1_stage_ops(work, "full", int_prio) == work.ops(int_prio)
+    assert (rl.k1_stage_bytes(cfg, int(alive.sum()), "full")
+            == rl.k1_bytes(cfg, int(alive.sum())))
+
+
+def test_mma_bound_at_the_probe_shapes():
+    """2 m k n operations a product at the type's dense peak; the 4,000
+    products outweigh the bytes of x, w and the two [m, n] outputs."""
+    b = rl.mma_bound(64, 128, 128, "bf16", 4000)
+    assert b.ops == 2 * 64 * 128 * 128 * 4000 == 8_388_608_000
+    assert b.bytes == 4 * (64 * 128 + 128 * 128 + 2 * 64 * 128)
+    assert b.bound_by == "operations"
+    assert b.ms == pytest.approx(8_388_608_000 / 989e12 * 1e3)
+    one_hot = {d: rl.mma_bound(8, 384, 128, d, 4000).ms / 4000
+               for d in ("bf16", "s8", "tf32", "f32")}
+    assert one_hot["s8"] == pytest.approx(786_432 / 1979e12 * 1e3)
+    assert one_hot["s8"] < one_hot["bf16"] < one_hot["tf32"] < one_hot["f32"]
+
+
+def test_plane_bytes_at_the_probe_sizes():
+    """Each writer reads its vectors and writes its floats once: at the
+    1M bucketed plane's 1,835,520 slots and the dense path's 2,019,072
+    rows."""
+    assert rl.plane_bytes("columns", 1_835_520, 8) == 117_473_280
+    assert rl.plane_bytes("columns", 1_835_520, 4) == 58_736_640
+    assert rl.plane_bytes("rows", 2_019_072, 4) == 64_610_304
+    assert rl.plane_bytes("rebuild", 2_019_072) == 193_830_912
+    assert rl.transpose_bytes(8, 128) == 8192
+    assert rl.Bound(rl.plane_bytes("rebuild", 2_019_072)).bound_by == "bytes"

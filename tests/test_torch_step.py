@@ -233,20 +233,24 @@ def test_kernel_wrappers_refuse_cpu_tensors_for_launch():
 
 
 def test_import_leaves_jax_out():
-    """The port never imports JAX, flax or the JAX package."""
+    """The port never imports JAX, flax or the JAX package: every module
+    of the package (walked, so that no new one is missed), the probes
+    among them."""
     code = (
-        "import sys\n"
-        "import rmf_crowdsim_tpu_torch\n"
-        "import rmf_crowdsim_tpu_torch.scenes\n"
-        "import rmf_crowdsim_tpu_torch.ops.pack\n"
-        "import rmf_crowdsim_tpu_torch.ops.spill\n"
-        "import rmf_crowdsim_tpu_torch.ops.zanlungo_dense\n"
-        "import rmf_crowdsim_tpu_torch.utils.convert\n"
-        "import rmf_crowdsim_tpu_torch.utils.cuda_build\n"
-        "import rmf_crowdsim_tpu_torch.utils.profile_step\n"
+        "import importlib, pkgutil, sys\n"
+        "import rmf_crowdsim_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "need = {'rmf_crowdsim_tpu_torch.probes.k1_stages', "
+        "'rmf_crowdsim_tpu_torch.probes.mma_chain', "
+        "'rmf_crowdsim_tpu_torch.probes.planes', "
+        "'rmf_crowdsim_tpu_torch.utils.profile_step'}\n"
+        "assert need <= set(names), need - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'rmf_crowdsim_tpu')]\n"
-        "print(bad)\n"
+        "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
