@@ -26,20 +26,36 @@ repository beside it).  Phases, each printing its own line:
    on a tile corner), each kernel's overflow count > 0 over them, so the
    re-walk runs on the card; K4 likewise on the 1M dense state with two
    crowds added, its list overflows and its blocks that read their
-   candidates in place both > 0;
+   candidates in place both > 0; then the fresh-dead scenes: the 1M
+   streaming scene (``scenes.build_streams``) on ``grid_pallas`` and on
+   ``grid_dense``, its sources switched off after a warm-up, stepped in
+   skin mode until a sink despawns agents whose rows the carried binning
+   still holds; on that carried binning K3 (bitwise), K1, K2 and K4
+   against their plain versions on live rows, every fresh-dead row packed
+   inert (id -1, position sentinel) and none in the spill list;
 4. gates (the port of bench.py's ``compiled_parity_check``): the
    4,096-agent bench scene with the 48-agent hotspot, 5 steps at
    dt = 1/60, against ``brute`` by uid to 2e-4 with zero truncation:
    ``grid_pallas``, ``grid_pallas`` with ``fused_spills=True`` and
-   ``grid_dense``;
+   ``grid_dense``; then the streaming gate: the same scene at capacity
+   4,608 with 16 sources, 8 steps, on those three paths and ``grid``
+   against ``brute``: the same uids alive, positions by uid to 2e-4,
+   the counters equal step for step, zero truncation;
 5. the 1M-agent bench scene through ``build_rollout`` on three paths:
    the main path (``grid_pallas``), path A (``grid_dense``) and path B
-   (``grid_pallas`` with ``fused_spills=True``).  Each: a warm-up, then
-   20 timed steps with the launch counts set to 0 just before and read
-   just after; zero truncation, finite state, no agent lost, and every
-   kernel of the path launched; then its host syncs per step, counted,
-   and its kernel launches and device time per step (``torch.profiler``
-   over 3 steps);
+   (``grid_pallas`` with ``fused_spills=True``), then path C, the 1M
+   streaming scene (1,024 sources, capacity 1,048,576) on
+   ``grid_pallas``.  Each: a warm-up (30 steps on path C), then 20 timed
+   steps with the launch counts set to 0 just before and read just
+   after; zero truncation, finite state, every kernel of the path
+   launched, and no agent lost (path C: spawns, despawns, waypoints
+   reached and dropped spawns all > 0, and the population conserved step
+   by step); then its host syncs per step, counted, and its kernel
+   launches and device time per step (``torch.profiler`` over 3 steps);
+   path C also times its clearance gate (CUDA events) and runs 5 steps
+   with per-uid event records (2,048 a kind), whose valid uids match the
+   counters, with no overflow and every spawned uid new.  Last, the
+   ``grid`` backend on the 1M bench scene, 3 timed steps;
 6. the measurement probes (``rmf_crowdsim_tpu_torch/probes``), which no
    path of the simulator runs: each probe kernel against its plain
    version on the card (K1's stage cuts bitwise on the 1M plane, ``full``
@@ -69,6 +85,19 @@ N_GATE = 4096
 DT = 1.0 / 60.0
 TOL = 2e-4
 K4_REWALK_CLUSTER = 60
+# The streaming scenes: 1,024 sources at 1M in 1,048,576 slots; 16 at the
+# 4,096-agent gate in 4,608.
+CAP_MAIN = 1_048_576
+N_SOURCES = 1024
+CAP_GATE = 4608
+N_GATE_SOURCES = 16
+STREAM_WARM = 30
+EVENT_CAPACITY = 2048
+FRESH_DEAD_WARM = 12
+# Zanlungo's query chunk on the 1M grid backend (its [N, 144] table).
+GRID_CHUNK = 131_072
+STREAM_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
+                   "n_waypoint_reached", "spawn_dropped", "out_of_bounds")
 
 
 def _device_ms(torch, fn, reps: int, kernel: str) -> float:
@@ -201,17 +230,20 @@ def _k2_check(torch, spill, zb, cfg, zp5, packed_t, packed_T, rows, sp_tcx,
 
 
 def _drive(torch, name, rollout, params, st, kernels, required, absent,
-           card, n_steps=20):
-    """One 1M path of phase 5: warm-up, ``n_steps`` timed steps with every
-    launch count of ``kernels`` ({name: wrapper}) set to 0 just before
-    and read just after, checks (each kernel named in ``required``
-    launched, none in ``absent``), then the host syncs per step and, over
-    3 steps under the profiler, the kernel launches per step.  Returns
-    the launch counts."""
+           card, n_steps=20, warm=2, check=None):
+    """One 1M path of phase 5: ``warm`` steps, ``n_steps`` timed steps with
+    every launch count of ``kernels`` ({name: wrapper}) set to 0 just
+    before and read just after, checks (each kernel named in ``required``
+    launched, none in ``absent``; ``check(counters, alive before)``, by
+    default that no agent was lost), then the host syncs per step and,
+    over 3 steps under the profiler, the kernel launches per step.
+    Returns (launch counts, ms/step, profile, state)."""
     from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
 
-    st, _ = rollout(params, st, DT, 2)
+    st, _ = rollout(params, st, DT, warm)
     torch.cuda.synchronize()
+    n_before = int(st.num_alive)
+    shape = tuple(st.position.shape)
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -230,12 +262,15 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     truncated = int(c.neighbor_truncated.max())
     if truncated:
         raise AssertionError(f"{name} truncates {truncated}")
-    if tuple(st.position.shape) != (N_MAIN, 2) or not bool(
+    if tuple(st.position.shape) != shape or not bool(
             torch.isfinite(st.position).all()):
         raise AssertionError(f"{name} state is not finite [N, 2]")
-    if int(c.n_alive.min()) != N_MAIN:
-        raise AssertionError(f"{name} lost agents")
-    print(f"phase 5 {name}: {N_MAIN} agents, {n_steps} steps in "
+    if check is None:
+        if int(c.n_alive.min()) != n_before:
+            raise AssertionError(f"{name} lost agents")
+    else:
+        check(c, n_before)
+    print(f"phase 5 {name}: {n_before} agents, {n_steps} steps in "
           f"{wall:.4f} s = {n_steps / wall:.2f} steps/s, "
           f"{1e3 * wall / n_steps:.3f} ms/step on '{card}'; launches "
           f"{launches}; max tile occupancy "
@@ -269,7 +304,139 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     print(f"phase 5 {name} profile: {prof['launches_per_step']:.1f} kernel "
           f"launches/step, device busy {prof['device_busy_ms']:.3f} ms/step "
           f"({n_sync_steps} steps under torch.profiler)", flush=True)
-    return launches
+    for ms, n, kname in prof["top"][:8]:
+        print(f"  {ms:.4f} ms/step  {n:6.1f} launches/step  {kname[:90]}")
+    return launches, 1e3 * wall / n_steps, prof, st
+
+
+def _stream_check(torch, name):
+    """Path C's check of its timed counters: spawns, despawns, waypoints
+    reached and dropped spawns all happened, and the population after
+    each step is the one before plus its spawns minus its despawns."""
+
+    def check(c, n_before):
+        sums = {k: int(getattr(c, k).sum()) for k in (
+            "n_spawned", "n_destroyed", "n_waypoint_reached",
+            "spawn_dropped")}
+        idle = [k for k, v in sums.items() if v == 0]
+        if idle:
+            raise AssertionError(f"{name}: {idle} stayed 0 ({sums})")
+        before = torch.cat([c.n_alive.new_tensor([n_before]),
+                            c.n_alive[:-1]])
+        if not torch.equal(c.n_alive, before + c.n_spawned - c.n_destroyed):
+            raise AssertionError(f"{name}: the population is not conserved")
+        print(f"phase 5 {name} counters over the timed steps: {sums}; "
+              f"alive {n_before} -> {int(c.n_alive[-1])}, conserved step "
+              f"by step", flush=True)
+
+    return check
+
+
+def _fresh_dead_state(torch, dev, backend, cfg):
+    """The 1M streaming scene on ``backend``: ``FRESH_DEAD_WARM`` steps
+    with its sources on, then every source off and skin-mode steps until
+    one despawns agents whose rows the carried binning still holds (rows
+    keyed into a tile of ``cfg`` at the last sort, dead now).  Returns
+    (config, params, state after that step, skin, fresh-dead mask [N])."""
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.core.step import build_step, empty_skin
+
+    rollout, params, st = scenes.build_streams(
+        N_MAIN, CAP_MAIN, N_SOURCES, backend=backend, device=dev)
+    st, _ = rollout(params, st, DT, FRESH_DEAD_WARM)
+    sp = params.sources
+    params = params.replace(sources=sp.replace(
+        active=torch.zeros_like(sp.active)))
+    config = scenes.stream_config(N_MAIN, CAP_MAIN, backend=backend)
+    step = build_step(config, *scenes.stream_planners(params.hl[1]["routes"]),
+                      skin_mode=True)
+    skin = empty_skin(config, dev)
+    for _ in range(10):
+        st, ev, skin = step(params, st, DT, skin)
+        dead = ~st.alive & (skin["key"] < cfg.n_tiles)
+        if bool(dead.any()):
+            return config, params, st, skin, dead
+    raise AssertionError(f"fresh-dead {backend}: no sink fired in 10 steps")
+
+
+def _fresh_dead(torch, dev):
+    """Phase 3's fresh-dead scenes: K3, K1 and K2 on the carried bucketed
+    binning, K4 on the carried dense key, each against its plain version
+    on live rows; fresh-dead rows must be packed inert and never listed
+    as spills."""
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.models.highlevel import ParityVelocity
+    from rmf_crowdsim_tpu_torch.ops import pack, spill
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
+
+    bcfg = scenes.bench_bucket_config(N_MAIN)
+    config, params, st, skin, dead = _fresh_dead_state(
+        torch, dev, "grid_pallas", bcfg)
+    zp5 = zb.zparams5(params.lp[0])
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat_t, bpos, bucket_pos, _, _ = zb.feature_rows(
+        bcfg, st.position, st.velocity, st.preferred_vel, rec, st.priority,
+        st.eyesight, rec, st.alive, use_pack_kernel=True, presorted=True,
+        binning=(skin["bpos"], skin["max_occ"], skin["n_over"]))
+    packed_t, packed_T, _ = pack.pack_rows(feat_t, bpos, bcfg.slots)
+    plain_t, plain_T = pack.pack_rows_plain(feat_t, bpos, bcfg.slots)
+    if not (torch.equal(packed_t, plain_t) and torch.equal(packed_T,
+                                                           plain_T)):
+        raise AssertionError("fresh-dead: K3 differs from its plain version")
+    slot_dead = dead & (bpos < bcfg.slots)
+    ds = bpos[slot_dead].long()
+    if ds.numel() == 0:
+        raise AssertionError("fresh-dead: no dead row holds a bucket slot")
+    if not (bool((packed_t[ds, zb.ROW_ID] == -1).all()) and bool(
+            (packed_t[ds, zb.ROW_PX] == zb.POS_SENTINEL).all())):
+        raise AssertionError("fresh-dead: a dead row is packed live")
+    live = packed_T[zb.ROW_ID] >= 0
+    out_k = zb.zanlungo_forces_bucketed(bcfg, zp5, packed_t, packed_T,
+                                        int_prio=True)
+    out_p = zb.forces_bucketed_plain(bcfg, zp5, packed_t, packed_T, True)
+    torch.testing.assert_close(out_k[live], out_p[live], rtol=TOL, atol=TOL)
+    e1 = (out_k[live] - out_p[live]).abs().max().item()
+    t_key = torch.clamp(skin["key"], 0, bcfg.n_tiles - 1)
+    c_sp, rows, sp_tcx, sp_tcy = spill.spill_rows(
+        bcfg, st.position, st.velocity, rec, st.preferred_vel, st.priority,
+        st.eyesight, st.alive, rec, bucket_pos, config.spill_capacity,
+        tile_xy=(t_key // bcfg.ty, t_key % bcfg.ty))
+    ids = rows[c_sp.valid, zb.ROW_ID].long()
+    if not bool(st.alive[ids].all()):
+        raise AssertionError("fresh-dead: a dead row is in the spill list")
+    e2, n_q, _ = _k2_check(torch, spill, zb, bcfg, zp5, packed_t, packed_T,
+                           rows, sp_tcx, sp_tcy, rec, True, None)
+    print(f"phase 3 fresh-dead grid_pallas: {int(dead.sum())} rows dead "
+          f"under the carried binning ({ds.numel()} in bucket slots, "
+          f"{int((dead & ~slot_dead).sum())} past their bucket), packed "
+          f"inert; K3 bitwise; K1 max abs err {e1:.3g}; {int(c_sp.count)} "
+          f"spills, all alive; K2 ({n_q} live window queries) max abs err "
+          f"{e2:.3g} (tol {TOL})", flush=True)
+    del packed_t, packed_T, plain_t, plain_T, feat_t, out_k, out_p, st
+
+    dcfg = scenes.bench_dense_config(N_MAIN, CAP_MAIN)
+    config, params, st, skin, dead = _fresh_dead_state(
+        torch, dev, "grid_dense", dcfg)
+    rec = ParityVelocity((1.0, 0.0)).plan(params.hl[0], st).vel
+    feat, tile_start, dbpos, n_col_over, _ = zd.dense_prep(
+        dcfg, skin["key"], st.position, st.velocity, st.preferred_vel, rec,
+        st.priority, st.eyesight, rec, st.alive)
+    if int(n_col_over):
+        raise AssertionError(f"fresh-dead K4: {int(n_col_over)} rows past "
+                             f"col_cap")
+    if not (bool((feat[dead, zb.ROW_ID] == -1).all()) and bool(
+            (feat[dead, zb.ROW_PX] == zb.POS_SENTINEL).all())):
+        raise AssertionError("fresh-dead: a dead row is a live dense row")
+    rows = dbpos[st.alive & (dbpos < dcfg.slots)].long()
+    out_k = zd.zanlungo_forces_dense(dcfg, zp5, feat, tile_start,
+                                     int_prio=True)
+    out_p = zd.forces_dense_plain(dcfg, zp5, feat, tile_start, True)
+    torch.testing.assert_close(out_k[rows], out_p[rows], rtol=TOL, atol=TOL)
+    e4 = (out_k[rows] - out_p[rows]).abs().max().item()
+    print(f"phase 3 fresh-dead grid_dense: {int(dead.sum())} rows dead "
+          f"under the carried key, packed inert; K4 on {rows.shape[0]} live "
+          f"rows max abs err {e4:.3g} (tol {TOL})", flush=True)
 
 
 def _ptxas_registers(log: str, kernel: str) -> dict:
@@ -345,6 +512,11 @@ def _probes(torch, dev, card, rl) -> list:
     t_dev = {f"transpose [{r},{c}]": _device_ms(
         torch, lambda: planes.transpose(src[:r], c), 20, "transpose_kernel")
         for r, c in planes.TRANSPOSES}
+    # The library call's own device time on the same block: every kernel
+    # its run launches (one copy).
+    t_lib_dev = {f"transpose [{r},{c}]": _device_ms(
+        torch, lambda: src[:r, :c].t().contiguous(), 20, "")
+        for r, c in planes.TRANSPOSES}
     print(k1_stages.stage_table(k1_rows, card))
     print(f"phase 6 P3 chained 0/1 products on '{card}', "
           f"{mma_chain.ITERS} steps a call:")
@@ -356,8 +528,10 @@ def _probes(torch, dev, card, rl) -> list:
     print(f"phase 6 P4 transposes and plane writers on '{card}':")
     for name, size, ms, pms, lib, b, *_ in plane_rows:
         lib_text = "none" if lib is None else f"{lib:.4f} ms"
-        dev_text = (f" ({t_dev[name]:.4f} ms on the device)"
-                    if name in t_dev else "")
+        dev_text = ""
+        if name in t_dev:
+            dev_text = f" ({t_dev[name]:.4f} ms on the device)"
+            lib_text += f" ({t_lib_dev[name]:.4f} ms on the device)"
         print(f"  {name:18s} {size:18s}: {ms:.4f} ms{dev_text}, bound "
               f"{b.ms:.6f} ms ({b.bytes} B), {100 * b.ms / ms:.1f}% of "
               f"bound; plain {pms:.4f} ms; one torch call {lib_text}")
@@ -394,8 +568,9 @@ def _probes(torch, dev, card, rl) -> list:
         rows.append(row(f"{name} {size}".replace(" ", "_"), "plane_probe.cu",
                         replaces.get(name, "perf/transpose_probe.py:83"),
                         n, err, ms, pms, b.ms, b.bound_by, lib,
-                        **({"device_ms": t_dev[name]} if name in t_dev
-                           else {})))
+                        **({"device_ms": t_dev[name],
+                            "library_device_ms": t_lib_dev[name]}
+                           if name in t_dev else {})))
     # P3 and P4 are bitwise at the timed sizes too (P3 at 4,000 steps).
     bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0
            and not r["name"].startswith("k1_stage")]
@@ -417,12 +592,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.core.step import build_rollout, spawn_blocked
     from rmf_crowdsim_tpu_torch.ops import pack, spill
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
     from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
     from rmf_crowdsim_tpu_torch.utils import cuda_build
     from rmf_crowdsim_tpu_torch.utils import roofline as rl
-    from rmf_crowdsim_tpu_torch.utils.profile_step import card_line
+    from rmf_crowdsim_tpu_torch.utils.profile_step import card_line, cuda_ms
 
     def bound_text(b, ms):
         return (f"bound {b.ms:.4f} ms ({b.bound_by}: {b.bytes} B, {b.ops} "
@@ -740,6 +916,9 @@ def main() -> int:
     del rollout, params, st, hot, feat, out_k, out_p
     torch.cuda.empty_cache()
 
+    _fresh_dead(torch, dev)
+    torch.cuda.empty_cache()
+
     # ---- phase 4: gates against brute ----------------------------------
     gates = {"grid_pallas": dict(backend="grid_pallas"),
              "grid_pallas fused_spills": dict(backend="grid_pallas",
@@ -768,6 +947,42 @@ def main() -> int:
               f"vs brute by uid: max abs err {gate_err:.3g} (tol {TOL}); "
               f"max tile occupancy {occs[name]}; truncated 0", flush=True)
 
+    # The streaming gate: the same scene with 16 sources.
+    souts = {}
+    for name, kw in {"brute": dict(backend="brute"), **gates,
+                     "grid": dict(backend="grid")}.items():
+        rollout, params, st = scenes.build_streams(
+            N_GATE, CAP_GATE, N_GATE_SOURCES, device=dev, hotspot=True, **kw)
+        st, c = rollout(params, st, DT, 8)
+        truncated = int(c.neighbor_truncated.max())
+        if truncated:
+            raise AssertionError(f"streaming gate truncates {truncated} on "
+                                 f"{name}")
+        uid = st.uid[st.alive]
+        order = torch.argsort(uid)
+        souts[name] = (uid[order], st.position[st.alive][order], c)
+    b_uid, b_pos, b_c = souts.pop("brute")
+    if int(b_c.n_spawned.sum()) == 0:
+        raise AssertionError("the streaming gate spawns nothing")
+    for name, (uid, pos, c) in souts.items():
+        if not torch.equal(uid, b_uid):
+            raise AssertionError(f"streaming gate {name}: other agents "
+                                 f"alive than on brute")
+        for k in STREAM_COUNTERS:
+            if not torch.equal(getattr(c, k), getattr(b_c, k)):
+                raise AssertionError(f"streaming gate {name}: {k} differs "
+                                     f"from brute")
+        torch.testing.assert_close(pos, b_pos, rtol=TOL, atol=TOL)
+        gate_err = (pos - b_pos).abs().max().item()
+        print(f"phase 4 streaming gate {name}: {N_GATE} agents + hotspot, "
+              f"{N_GATE_SOURCES} sources, capacity {CAP_GATE}, 8 steps, vs "
+              f"brute: {uid.shape[0]} uids alive, the same; counters equal "
+              f"(spawned {int(c.n_spawned.sum())}, reached "
+              f"{int(c.n_waypoint_reached.sum())}, despawned "
+              f"{int(c.n_destroyed.sum())}, dropped "
+              f"{int(c.spawn_dropped.sum())}); max abs err {gate_err:.3g} "
+              f"(tol {TOL}); truncated 0", flush=True)
+
     # ---- phase 5: the 1M bench scene on three paths ----------------------
     kernels = {
         "pack_rows": pack.pack_rows,
@@ -791,15 +1006,92 @@ def main() -> int:
             ("pack_rows", "zanlungo_bucketed_spill", "spill_window"),
             ("zanlungo_bucketed", "zanlungo_dense")),
     }
-    launches = {}
+    launches, walls, profs = {}, {}, {}
     for name, (kw, required, absent) in paths.items():
         rollout, params, st = scenes.build_bench(N_MAIN, device=dev, **kw)
-        counts = _drive(torch, name, rollout, params, st, kernels, required,
-                        absent, card)
+        counts, walls[name], profs[name], _ = _drive(
+            torch, name, rollout, params, st, kernels, required, absent, card)
         for k in required:
             launches.setdefault(k, counts[k])
         del rollout, params, st
         torch.cuda.empty_cache()
+
+    # Path C: the 1M bench crowd with 1,024 streaming sources.
+    name = "path C grid_pallas streams"
+    rollout, params, st = scenes.build_streams(N_MAIN, CAP_MAIN, N_SOURCES,
+                                               device=dev)
+    launches_c, wall_c, prof_c, st = _drive(
+        torch, name, rollout, params, st, kernels, paths["main grid_pallas"][1],
+        paths["main grid_pallas"][2], card, warm=STREAM_WARM,
+        check=_stream_check(torch, name))
+    sp = params.sources
+    clear = scenes.stream_config(N_MAIN, CAP_MAIN).spawn_clearance
+    gate_ms = cuda_ms(lambda: spawn_blocked(st.position, st.alive, sp.source,
+                                            clear), 10)
+    main = "main grid_pallas"
+    print(f"phase 5 {name} clearance gate ({N_SOURCES} sources x {CAP_MAIN} "
+          f"slots, CUDA events over 10 calls): {gate_ms:.3f} ms/step, "
+          f"{100 * gate_ms / prof_c['device_busy_ms']:.1f}% of the path's "
+          f"device busy time; path C vs the main path in this call: "
+          f"{wall_c:.3f} vs {walls[main]:.3f} ms/step, device busy "
+          f"{prof_c['device_busy_ms']:.3f} vs "
+          f"{profs[main]['device_busy_ms']:.3f} ms/step, "
+          f"{prof_c['launches_per_step']:.1f} vs "
+          f"{profs[main]['launches_per_step']:.1f} launches/step; kernel "
+          f"launches in the timed steps {launches_c}", flush=True)
+
+    # Five more steps with per-uid event records.
+    ev_rollout = build_rollout(
+        scenes.stream_config(N_MAIN, CAP_MAIN),
+        *scenes.stream_planners(params.hl[1]["routes"]),
+        event_capacity=EVENT_CAPACITY)
+    next_uid = int(st.next_uid)
+    st, ev = ev_rollout(params, st, DT, 5)
+    if int(ev.overflow.max()):
+        raise AssertionError(f"{name}: event records overflow")
+    for uid_f, counter in (("spawned_uid", "n_spawned"),
+                           ("destroyed_uid", "n_destroyed"),
+                           ("reached_uid", "n_waypoint_reached")):
+        got = (getattr(ev, uid_f) >= 0).sum(1, dtype=torch.int32)
+        if not torch.equal(got, getattr(ev.counters, counter)):
+            raise AssertionError(f"{name}: {uid_f} records differ from "
+                                 f"{counter}")
+    firsts = next_uid + torch.cumsum(ev.counters.n_spawned, 0) \
+        - ev.counters.n_spawned
+    new = ev.spawned_uid >= 0
+    if not bool((ev.spawned_uid >= firsts[:, None])[new].all()):
+        raise AssertionError(f"{name}: a spawned uid is not new")
+    print(f"phase 5 {name} event records ({EVENT_CAPACITY} a kind), 5 "
+          f"steps: spawned {ev.counters.n_spawned.tolist()}, despawned "
+          f"{ev.counters.n_destroyed.tolist()}, reached "
+          f"{ev.counters.n_waypoint_reached.tolist()}; valid uids = "
+          f"counters, overflow 0, every spawned uid new", flush=True)
+    del rollout, ev_rollout, params, st, ev
+    torch.cuda.empty_cache()
+
+    # The grid backend on the 1M bench scene.
+    rollout, params, st = scenes.build_bench(N_MAIN, backend="grid",
+                                             device=dev,
+                                             force_chunk=GRID_CHUNK)
+    st, _ = rollout(params, st, DT, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, c = rollout(params, st, DT, 3)
+    torch.cuda.synchronize()
+    wall_g = (time.perf_counter() - t0) / 3
+    if int(c.neighbor_truncated.max()):
+        raise AssertionError(f"grid truncates {int(c.neighbor_truncated.max())}")
+    if not bool(torch.isfinite(st.position).all()) or int(
+            c.n_alive.min()) != N_MAIN:
+        raise AssertionError("grid: state not finite or agents lost")
+    print(f"phase 5 grid: {N_MAIN} agents, 3 steps, {1e3 * wall_g:.3f} "
+          f"ms/step on '{card}'; max cell occupancy "
+          f"{int(c.max_cell_occupancy.max())} (max_per_cell "
+          f"{scenes.bench_config(N_MAIN).max_per_cell}); truncated 0; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del rollout, params, st
+    torch.cuda.empty_cache()
 
     probe_rows = _probes(torch, dev, card, rl)
 
@@ -826,7 +1118,9 @@ def main() -> int:
          "bound_by": results[name]["bound"].bound_by,
          "library_ms": None,
          **({"device_ms": results[name]["device_ms"]}
-            if "device_ms" in results[name] else {})}
+            if "device_ms" in results[name] else {}),
+         **({"launches_path_c": launches_c[name]}
+            if name in paths["main grid_pallas"][1] else {})}
         for name in source
     ] + probe_rows}))
     print(f"card: {card}")

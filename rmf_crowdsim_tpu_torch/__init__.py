@@ -2,40 +2,85 @@
 
 The port of ``rmf_crowdsim_tpu`` (the JAX package, which stays the
 reference) to PyTorch on one NVIDIA Hopper GPU.  Module names follow the
-JAX package's; each module's docstring names its counterpart.  The slice
-ported so far is the bench path: ``build_rollout`` on the ``brute``,
-``grid_pallas`` (with or without fused spills) and ``grid_dense``
-backends, with the force, fused-spill force, dense force, pack and
-spill-window kernels written in CUDA (``csrc/``) and built at their
-first use.  The package imports ``torch`` and never JAX.
+JAX package's; each module's docstring names its counterpart.  Ported so
+far: the step and ``build_rollout`` on all five neighbor backends
+(``brute``, ``grid``, ``grid_pallas`` with or without fused spills,
+``grid_dense`` and ``custom``), SourceSink streaming (spawn, sinks,
+waypoint routes) with per-uid event streams, and the spatial queries,
+with the force, fused-spill force, dense force, pack and spill-window
+kernels written in CUDA (``csrc/``) and built at their first use.  Not
+yet: the ``Simulation`` host session and the multi-device engines.  The
+package imports ``torch`` and never JAX.
 """
 
 from .core.config import GridConfig, SimConfig
 from .core.state import SimState, StepEvents, make_state
-from .core.step import SimParams, build_rollout, build_step
+from .core.step import (
+    EventStream,
+    RolloutCounters,
+    SimParams,
+    build_rollout,
+    build_step,
+)
 from .models.highlevel import (
     ConstantVelocity,
     HighLevelPlanner,
     HLResult,
     ParityVelocity,
+    RouteTable,
+    WaypointFollow,
 )
 from .models.local import LocalPlanner, NoLocalPlan, Zanlungo, ZanlungoParams
+from .models.source_sink import (
+    GEN_CUSTOM,
+    GEN_MONOTONIC,
+    GEN_POISSON,
+    MonotonicCrowd,
+    PoissonCrowd,
+    SourceParams,
+    SourceSink,
+    stack_source_params,
+)
+from .ops.neighbors import (
+    NeighborSet,
+    nearest_neighbors,
+    nearest_neighbors_grid,
+    nearest_neighbors_tiered,
+    neighbors_in_radius,
+)
 
 __all__ = [
     "ConstantVelocity",
+    "EventStream",
+    "GEN_CUSTOM",
+    "GEN_MONOTONIC",
+    "GEN_POISSON",
     "GridConfig",
     "HighLevelPlanner",
     "HLResult",
     "LocalPlanner",
+    "MonotonicCrowd",
+    "NeighborSet",
     "NoLocalPlan",
     "ParityVelocity",
+    "PoissonCrowd",
+    "RolloutCounters",
+    "RouteTable",
     "SimConfig",
     "SimParams",
     "SimState",
+    "SourceParams",
+    "SourceSink",
     "StepEvents",
+    "WaypointFollow",
     "Zanlungo",
     "ZanlungoParams",
     "build_rollout",
     "build_step",
     "make_state",
+    "nearest_neighbors",
+    "nearest_neighbors_grid",
+    "nearest_neighbors_tiered",
+    "neighbors_in_radius",
+    "stack_source_params",
 ]

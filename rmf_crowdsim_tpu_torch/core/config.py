@@ -28,9 +28,9 @@ BACKEND_GRID_PALLAS = "grid_pallas"
 BACKEND_GRID_DENSE = "grid_dense"
 BACKEND_CUSTOM = "custom"
 
-# Backends the port runs so far; the others are accepted by the config
-# (one spec serves both packages) and refused by build_step.
-PORTED_BACKENDS = (BACKEND_BRUTE, BACKEND_GRID_PALLAS, BACKEND_GRID_DENSE)
+# The neighbor backends the port runs: all five of the JAX package.
+PORTED_BACKENDS = (BACKEND_BRUTE, BACKEND_GRID, BACKEND_GRID_PALLAS,
+                   BACKEND_GRID_DENSE, BACKEND_CUSTOM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,13 +108,7 @@ class SimConfig:
         return getattr(torch, self.dtype)
 
     def __post_init__(self):
-        if self.neighbor_backend not in (
-            BACKEND_BRUTE,
-            BACKEND_GRID,
-            BACKEND_GRID_PALLAS,
-            BACKEND_GRID_DENSE,
-            BACKEND_CUSTOM,
-        ):
+        if self.neighbor_backend not in PORTED_BACKENDS:
             raise ValueError(
                 f"unknown neighbor backend {self.neighbor_backend!r}")
         if (

@@ -3,9 +3,10 @@
 Counterpart of ``rmf_crowdsim_tpu/core/state.py``: the same fields, as a
 frozen dataclass of tensors with a ``replace`` helper in place of
 ``flax.struct``.  The JAX state's ``rng_key`` becomes an explicit
-``torch.Generator`` held beside the tensors (``generator``); the two
-frameworks draw different numbers from the same seed, so nothing compares
-them (the slice runs no random spawns).
+``torch.Generator`` held beside the tensors (``generator``), from which
+``PoissonCrowd`` sources draw their requests; the two frameworks draw
+different numbers from the same seed, so Poisson spawns are never
+compared with the JAX package's.
 """
 
 from __future__ import annotations

@@ -1,21 +1,20 @@
 """The simulation step and the multi-step rollout.
 
-Counterpart of ``rmf_crowdsim_tpu/core/step.py`` for the ``brute``,
-``grid_pallas`` and ``grid_dense`` backends: ``SimParams``,
-``payload_sort_by_key``, the high-level, sink and finish phases,
-``build_step`` with the presort and the skin-deferred re-sort,
-``RolloutCounters`` and ``build_rollout``.
+Counterpart of ``rmf_crowdsim_tpu/core/step.py``: ``SimParams``, the
+SourceSink spawn phase, ``payload_sort_by_key``, the high-level, sink and
+finish phases, ``build_step`` on all five neighbor backends with the
+presort and the skin-deferred re-sort, ``RolloutCounters``,
+``EventStream`` and ``build_rollout``.
 
 PyTorch runs eagerly, so the JAX package's ``lax.scan`` becomes a Python
 loop and its on-device branches become host decisions or branch-free
-code.  The step reads the device once: the skin decision (``need``), as
-one ``.item()``.  Everything else — the spill repair, the counters —
-stays on the device without a host read.
+code.  The step reads the device once: the skin decision (``need``, which
+includes whether anything spawned), as one ``.item()``.  Everything else
+— the spawn gate and slot allocation, the spill repair, the truncation
+audit, the counters and event records — stays on the device without a
+host read.
 
-Not ported yet (they raise ``NotImplementedError``): SourceSink spawning
-and waypoint bookkeeping (``params.sources``), per-uid event streams
-(``event_capacity > 0``), the ``grid`` and ``custom`` backends, and
-domain decomposition.
+Not ported: domain decomposition (``world_mesh``).
 """
 
 from __future__ import annotations
@@ -25,26 +24,136 @@ from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.source_sink import GEN_CUSTOM, GEN_POISSON, SourceParams
 from ..ops import grid as grid_ops
 from ..ops import neighbors as nbr_ops
+from ..ops.compact import compact_indices
 from .config import (
     BACKEND_BRUTE,
+    BACKEND_CUSTOM,
+    BACKEND_GRID,
     BACKEND_GRID_DENSE,
     BACKEND_GRID_PALLAS,
-    PORTED_BACKENDS,
     SimConfig,
 )
 from .state import SimState, StepEvents, TensorDataclass
 
+# Sources per pass of the clearance gate, as the JAX package chunks it
+# (core/step.py:119): its temporaries stay [64, N].
+SPAWN_CHUNK = 64
+
 
 @dataclasses.dataclass(frozen=True)
 class SimParams(TensorDataclass):
-    """Per-planner parameters plus the SourceSink table (``None``: the
-    port does not run sources yet)."""
+    """Per-planner parameters plus the stacked SourceSink table."""
 
     hl: Tuple[Any, ...]
     lp: Tuple[Any, ...]
-    sources: Optional[Any] = None
+    sources: Optional[SourceParams] = None
+
+
+def spawn_blocked(position: torch.Tensor, alive: torch.Tensor,
+                  sources: torch.Tensor, clearance: float) -> torch.Tensor:
+    """[S] bool: an alive agent lies strictly within ``clearance`` of the
+    source (lib.rs:212-214), ``sqrt(dx*dx + dy*dy) < clearance`` in the
+    position dtype.  Dense over [64, N] planes per pass of 64 sources;
+    dead agents are moved to infinity, where no distance passes."""
+    inf = torch.full((), float("inf"), dtype=position.dtype,
+                     device=position.device)
+    far = torch.where(alive[:, None], position, inf)
+    px, py = far[:, 0], far[:, 1]
+    out = []
+    for lo in range(0, sources.shape[0], SPAWN_CHUNK):
+        src = sources[lo:lo + SPAWN_CHUNK]
+        dx = px[None, :] - src[:, 0:1]
+        dy = py[None, :] - src[:, 1:2]
+        d2 = dx.mul_(dx).add_(dy.mul_(dy))
+        out.append((d2.sqrt_() < clearance).any(1))
+    return torch.cat(out)
+
+
+def spawn_requests(sp: SourceParams, dt: float,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """[S] int32: each source's request this step.  ``MonotonicCrowd``:
+    ``floor(rate*dt + 0.5)`` in the config dtype (``dt`` rounded to it
+    first, as the JAX step's ``jnp.asarray(dt, f)``); ``PoissonCrowd``: a
+    ``torch.poisson`` draw of ``rate*dt`` from ``generator``; GEN_CUSTOM:
+    the host's ``custom_count``; inactive sources: 0."""
+    i32 = torch.int32
+    rt = sp.rate * dt
+    mono = torch.floor(rt + 0.5).to(i32)
+    pois = torch.poisson(rt.to(torch.float32), generator=generator).to(i32)
+    n_req = torch.where(sp.gen_kind == GEN_POISSON, pois, mono)
+    n_req = torch.where(sp.gen_kind == GEN_CUSTOM, sp.custom_count, n_req)
+    return torch.where(sp.active, n_req, 0)
+
+
+def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
+                 dt: float):
+    """Phase A (lib.rs:199-254): each active source asks its generator for
+    a count; if positive and no alive agent of the PRE-spawn state lies
+    strictly within ``spawn_clearance`` of it, it spawns exactly one agent
+    at the source; surplus requests are dropped.  The k-th spawning source
+    takes the k-th free slot (the first S free slots by ``compact_indices``,
+    JAX's sorted free-slot prefix); uids are ``next_uid + rank`` over the
+    wanting sources, and ``next_uid`` grows by the spawns, as the JAX
+    package assigns them (core/step.py:68-178).  Where JAX scatters with
+    ``mode="drop"``, each spawning source's index is scattered once into
+    an [N+1] map whose last row absorbs the others.  Returns (state,
+    spawned [N] bool, dropped [] int32)."""
+    n = state.capacity
+    dev = state.device
+    i32 = torch.int32
+    s = sp.source.shape[0]
+
+    n_req = spawn_requests(sp, dt, state.generator)
+    blocked = spawn_blocked(state.position, state.alive, sp.source,
+                            config.spawn_clearance)
+    want = (n_req > 0) & ~blocked
+    free = compact_indices(~state.alive, s)
+    rank = torch.cumsum(want.to(i32), 0, dtype=i32) - 1
+    can = want & (rank < free.count)
+    slot = free.idx[torch.clamp(rank, 0, s - 1).long()]
+    tgt = torch.where(can, slot, n).long()
+    src_of_slot = torch.full((n + 1,), -1, dtype=i32, device=dev)
+    src_of_slot.scatter_(0, tgt, torch.arange(s, dtype=i32, device=dev))
+    src = src_of_slot[:n]
+    spawned = src >= 0
+    si = torch.clamp(src, min=0).long()
+    new_uid = (state.next_uid + rank).to(i32)
+
+    def put(field, values):
+        if field.dim() == 2:
+            return torch.where(spawned[:, None], values[si], field)
+        return torch.where(spawned, values[si], field)
+
+    def zero(field):
+        m = spawned[:, None] if field.dim() == 2 else spawned
+        return torch.where(m, torch.zeros((), dtype=field.dtype, device=dev),
+                           field)
+
+    n_can = can.sum(dtype=i32)
+    state = state.replace(
+        position=put(state.position, sp.source),
+        velocity=zero(state.velocity),
+        preferred_vel=zero(state.preferred_vel),
+        next_waypoint=zero(state.next_waypoint),
+        eyesight=put(state.eyesight, sp.eyesight),
+        alive=state.alive | spawned,
+        uid=put(state.uid, new_uid),
+        source_id=torch.where(spawned, src, state.source_id),
+        hl_idx=put(state.hl_idx, sp.hl_idx),
+        lp_idx=put(state.lp_idx, sp.lp_idx),
+        # Route leg 0, source -> waypoints[0] (lib.rs:242-249).
+        route_id=put(state.route_id, sp.leg_route[:, 0]),
+        route_wp=zero(state.route_wp),
+        # Zanlungo's right-of-way priority defaults to the agent id
+        # (zanlungo.rs:94-98).
+        priority=put(state.priority, new_uid.to(state.priority.dtype)),
+        next_uid=state.next_uid + n_can,
+    )
+    dropped = n_req.sum(dtype=i32) - n_can
+    return state, spawned, dropped
 
 
 def _hl_phase(config: SimConfig, hl_planners, params: SimParams,
@@ -68,17 +177,47 @@ def _hl_phase(config: SimConfig, hl_planners, params: SimParams,
 
 def _sink_phase(config: SimConfig, hl_planners, params: SimParams,
                 state: SimState):
-    """SourceSink waypoint bookkeeping (lib.rs:304-336); only the
-    no-sources branch is ported, so a step given sources (whose spawn
-    phase the port also lacks) raises here.  Returns (state, destroyed,
-    reached)."""
-    if params.sources is not None:
-        raise NotImplementedError(
-            "SourceSink spawning and waypoint bookkeeping are not ported "
-            "yet")
-    none = torch.zeros((state.capacity,), dtype=torch.bool,
-                       device=state.device)
-    return state, none, none
+    """SourceSink waypoint bookkeeping (lib.rs:304-336) against the
+    pre-integration position: rogue agents (waypoint index past the end)
+    are removed, an agent strictly inside its waypoint's disc advances,
+    wraps (``loop_forever``) or despawns at the last one, and
+    route-following planners get the next leg on an advance, never on a
+    wrap (lib.rs:318-320).  Returns (state, destroyed, reached)."""
+    n = state.capacity
+    none = torch.zeros((n,), dtype=torch.bool, device=state.device)
+    if params.sources is None:
+        return state, none, none
+    sp = params.sources
+    s = sp.source.shape[0]
+    w = sp.waypoints.shape[1]
+    has_ss = state.alive & (state.source_id >= 0)
+    src = torch.clamp(state.source_id, 0, s - 1).long()
+    wlen = sp.n_waypoints[src]
+    nwp = state.next_waypoint
+    rogue = has_ss & (nwp >= wlen)
+    target = sp.waypoints[src, torch.clamp(nwp, 0, w - 1).long()]
+    dist = nbr_ops.norm(state.position - target)
+    reached = has_ss & ~rogue & (dist < sp.radius_sink[src])
+    at_last = nwp == wlen - 1
+    looping = sp.loop_forever[src]
+    despawn = reached & at_last & ~looping
+    wrap = reached & at_last & looping
+    advance = reached & ~at_last
+    next_wp = torch.where(wrap, 0, torch.where(advance, nwp + 1, nwp))
+    route_id = state.route_id
+    route_wp = state.route_wp
+    for i, planner in enumerate(hl_planners):
+        if getattr(planner, "uses_routes", False):
+            sel = advance & (state.hl_idx == i)
+            new_rid = sp.leg_route[src, torch.clamp(next_wp, 0, w - 1).long()]
+            route_id = torch.where(sel, new_rid, route_id)
+            route_wp = torch.where(sel, 0, route_wp)
+    state = state.replace(
+        next_waypoint=torch.where(has_ss, next_wp, nwp),
+        route_id=route_id,
+        route_wp=route_wp,
+    )
+    return state, despawn | rogue, reached
 
 
 def payload_sort_by_key(state: SimState, key: torch.Tensor,
@@ -145,7 +284,8 @@ def _finish_phase(config: SimConfig, hl_planners, params: SimParams,
 
 
 def build_step(config: SimConfig, hl_planners: Sequence[Any],
-               lp_planners: Sequence[Any], skin_mode: bool = False):
+               lp_planners: Sequence[Any], neighbor_fn=None,
+               skin_mode: bool = False):
     """Construct ``step(params, state, dt) -> (state, events)``, or with a
     granted ``skin_mode`` (presorted grid_pallas or grid_dense with a
     positive skin margin; see the returned function's ``skin_mode``
@@ -153,13 +293,18 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
     ``step(params, state, dt, skin) -> (state, events, skin)``, which
     re-sorts only when an agent has moved more than the skin margin
     ``(tile_size - max_eyesight) / 2`` since the last sort or an agent
-    spawned (core/step.py:378)."""
+    spawned (core/step.py:378).
+
+    ``neighbor_fn``: required with ``neighbor_backend == "custom"``, a
+    function ``(state) -> NeighborSet`` (the reference's SpatialIndex
+    trait, spatial_index.rs:4-14) that sets ``truncated`` honestly."""
     hl_planners = tuple(hl_planners)
     lp_planners = tuple(lp_planners)
-    if config.neighbor_backend not in PORTED_BACKENDS:
-        raise NotImplementedError(
-            f"neighbor backend {config.neighbor_backend!r} is not ported "
-            f"yet (ported: {PORTED_BACKENDS})")
+    if config.neighbor_backend == BACKEND_CUSTOM and neighbor_fn is None:
+        raise ValueError("neighbor_backend='custom' requires a neighbor_fn")
+    window = None
+    if config.grid is not None:
+        window = config.grid.window_radius(config.max_eyesight)
 
     bucket_cfg = None
     if config.neighbor_backend == BACKEND_GRID_PALLAS:
@@ -191,6 +336,16 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                        - float(config.max_eyesight)) / 2.0
     skin_mode = bool(skin_mode and presort and skin_margin > 0.0)
 
+    def neighbor_table(state: SimState) -> nbr_ops.NeighborSet:
+        if config.neighbor_backend == BACKEND_CUSTOM:
+            return neighbor_fn(state)
+        if config.neighbor_backend == BACKEND_BRUTE:
+            return nbr_ops.brute_neighbors(state.position, state.eyesight,
+                                           state.alive)
+        return grid_ops.grid_neighbors(
+            config.grid, state.position, state.eyesight, state.alive,
+            window=window, max_per_cell=config.max_per_cell)
+
     def _presort_state(state: SimState, spawned):
         from ..ops.zanlungo_bucketed import tile_key
 
@@ -202,8 +357,12 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
         n = config.capacity
         dev = state.device
         dt = float(dt)
-        spawned = torch.zeros((n,), dtype=torch.bool, device=dev)
-        spawn_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        if params.sources is not None:
+            state, spawned, spawn_dropped = _spawn_phase(
+                config, params.sources, state, dt)
+        else:
+            spawned = torch.zeros((n,), dtype=torch.bool, device=dev)
+            spawn_dropped = torch.zeros((), dtype=torch.int32, device=dev)
 
         binning = None
         dense_key = None
@@ -216,7 +375,8 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                                torch.zeros_like(d)).max()
             need = ((~skin["valid"]) | spawned.any()
                     | (disp > skin_margin))
-            # The step's one host read: which branch to run.
+            # The step's one host read: which branch to run.  Spawns break
+            # the sort; despawns do not (see the end of the step).
             resort = bool(need.item())
             if resort:
                 state, spawned, key = _presort_state(state, spawned)
@@ -255,12 +415,7 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             )
             nbr = None
             if need_nbr:
-                if config.neighbor_backend != BACKEND_BRUTE:
-                    raise NotImplementedError(
-                        "table-based planners need the brute backend in "
-                        "the port")
-                nbr = nbr_ops.brute_neighbors(state.position, state.eyesight,
-                                              state.alive)
+                nbr = neighbor_table(state)
                 max_occ = nbr.max_cell_occupancy
                 truncated = truncated + nbr.truncated
             for i, planner in enumerate(lp_planners):
@@ -295,8 +450,10 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             spawn_dropped, max_occ, truncated, dt,
         )
         if skin_mode:
-            # Despawns keep the carried binning valid: bucketize packs
-            # fresh-dead rows inert (core/step.py:652-659).
+            # Despawns keep the carried binning valid: bucketize and
+            # dense_prep pack fresh-dead rows inert (position sentinel, id
+            # -1), so they are no candidate and no spill
+            # (core/step.py:652-659).
             skin_out["valid"] = torch.ones((), dtype=torch.bool, device=dev)
             return state, events, skin_out
         return state, events
@@ -319,9 +476,46 @@ class RolloutCounters(TensorDataclass):
     neighbor_truncated: torch.Tensor
 
 
-def _step_counters(ev: StepEvents, st: SimState) -> dict:
+@dataclasses.dataclass(frozen=True)
+class EventStream(TensorDataclass):
+    """Per-step compacted event records of a rollout: up to K uids (and
+    positions) per event kind and step, first slot first, so a host can
+    replay the reference's per-id EventListener calls (lib.rs:151-153,
+    189-191; the waypoint hook lib.rs:32/317) without [T, N] masks.
+    Unused entries hold uid -1; ``overflow`` counts the events of a step
+    past K (delivery would be incomplete)."""
+
+    spawned_uid: torch.Tensor  # [T, K] int32, -1 padded
+    spawned_pos: torch.Tensor  # [T, K, 2]
+    destroyed_uid: torch.Tensor  # [T, K] int32, -1 padded
+    reached_uid: torch.Tensor  # [T, K] int32, -1 padded
+    reached_pos: torch.Tensor  # [T, K, 2]
+    overflow: torch.Tensor  # [T] int32
+    counters: RolloutCounters
+
+
+def _compact_events(mask: torch.Tensor, uid: torch.Tensor, k: int,
+                    pos: Optional[torch.Tensor] = None):
+    """``uid[mask]`` (and ``pos[mask]``) in fixed ``k`` rows, first slot
+    first, with no host read.  Returns (uid_k, pos_k or None, n_dropped)."""
+    c = compact_indices(mask, k)
+    safe = torch.clamp(c.idx, 0, mask.shape[0] - 1).long()
+    uid_k = torch.where(c.valid, uid[safe].to(torch.int32), -1)
+    pos_k = None
+    if pos is not None:
+        pos_k = torch.where(c.valid[:, None], pos[safe],
+                            torch.zeros((), dtype=pos.dtype,
+                                        device=pos.device))
+    return uid_k, pos_k, c.n_over
+
+
+def emit_rollout_record(ev: StepEvents, st: SimState, k: int):
+    """One step's rollout record: :class:`RolloutCounters` of 0-d
+    tensors when ``k`` == 0, else an :class:`EventStream` row (up to ``k``
+    records per kind).  Spawned and reached agents are alive with their
+    uid in the post-step state; destroyed uids come from the events."""
     i32 = torch.int32
-    return dict(
+    c = RolloutCounters(
         n_alive=st.num_alive,
         n_spawned=ev.spawned.sum(dtype=i32),
         n_destroyed=ev.destroyed.sum(dtype=i32),
@@ -331,50 +525,89 @@ def _step_counters(ev: StepEvents, st: SimState) -> dict:
         max_cell_occupancy=ev.max_cell_occupancy,
         neighbor_truncated=ev.neighbor_truncated,
     )
+    if k == 0:
+        return c
+    s_uid, s_pos, s_drop = _compact_events(ev.spawned, st.uid, k,
+                                           ev.spawn_position)
+    d_uid, _, d_drop = _compact_events(ev.destroyed, ev.destroyed_uid, k)
+    r_uid, r_pos, r_drop = _compact_events(ev.waypoint_reached, st.uid, k,
+                                           ev.waypoint_position)
+    return EventStream(
+        spawned_uid=s_uid, spawned_pos=s_pos, destroyed_uid=d_uid,
+        reached_uid=r_uid, reached_pos=r_pos,
+        overflow=s_drop + d_drop + r_drop, counters=c,
+    )
+
+
+def _stack(rows):
+    """Stack per-step records (tensors or record dataclasses) over steps."""
+    r0 = rows[0]
+    if isinstance(r0, torch.Tensor):
+        return torch.stack(rows)
+    return type(r0)(**{f.name: _stack([getattr(r, f.name) for r in rows])
+                       for f in dataclasses.fields(r0)})
+
+
+def _empty_records(k: int, dtype: torch.dtype, dev):
+    """The records of a rollout of zero steps."""
+    def z(*shape, dt=torch.int32):
+        return torch.zeros((0, *shape), dtype=dt, device=dev)
+
+    c = RolloutCounters(**{f.name: z()
+                           for f in dataclasses.fields(RolloutCounters)})
+    if k == 0:
+        return c
+    return EventStream(spawned_uid=z(k), spawned_pos=z(k, 2, dt=dtype),
+                       destroyed_uid=z(k), reached_uid=z(k),
+                       reached_pos=z(k, 2, dt=dtype), overflow=z(),
+                       counters=c)
+
+
+def empty_skin(config: SimConfig, device) -> dict:
+    """The carry of a skin-mode step before its first sort (``valid``
+    False, so the first step sorts)."""
+    n = config.capacity
+    i32 = torch.int32
+    return dict(
+        valid=torch.zeros((), dtype=torch.bool, device=device),
+        key=torch.zeros((n,), dtype=i32, device=device),
+        bpos=torch.zeros((n,), dtype=i32, device=device),
+        max_occ=torch.zeros((), dtype=i32, device=device),
+        n_over=torch.zeros((), dtype=i32, device=device),
+        ref=torch.zeros((n, 2), dtype=config.tdtype, device=device),
+        resorted=False,
+    )
 
 
 def build_rollout(config: SimConfig, hl_planners: Sequence[Any],
-                  lp_planners: Sequence[Any], event_capacity: int = 0):
+                  lp_planners: Sequence[Any], event_capacity: int = 0,
+                  neighbor_fn=None):
     """Construct ``rollout(params, state, dt, n_steps) -> (state,
-    RolloutCounters)``: ``n_steps`` steps in a Python loop, on the
-    presorted grid_pallas and grid_dense paths with the skin-deferred
-    re-sort
-    (core/step.py:753).  Per-uid event streams (``event_capacity > 0``)
-    are not ported yet."""
-    if event_capacity:
-        raise NotImplementedError("event streams are not ported yet")
-    step = build_step(config, hl_planners, lp_planners, skin_mode=True)
+    records)``: ``n_steps`` steps in a Python loop, on the presorted
+    grid_pallas and grid_dense paths with the skin-deferred re-sort
+    (core/step.py:753).  ``records`` is :class:`RolloutCounters` ([T]
+    each) when ``event_capacity`` is 0, else an :class:`EventStream` with
+    ``[T, event_capacity]`` records per kind and the counters inside.
+    ``neighbor_fn``: see :func:`build_step`."""
+    step = build_step(config, hl_planners, lp_planners,
+                      neighbor_fn=neighbor_fn, skin_mode=True)
     uses_skin = bool(step.skin_mode)
+    k = int(event_capacity)
 
     def rollout(params: SimParams, state: SimState, dt: float,
                 n_steps: int):
-        n = config.capacity
         dev = state.device
-        skin = None
-        if uses_skin:
-            i32 = torch.int32
-            skin = dict(
-                valid=torch.zeros((), dtype=torch.bool, device=dev),
-                key=torch.zeros((n,), dtype=i32, device=dev),
-                bpos=torch.zeros((n,), dtype=i32, device=dev),
-                max_occ=torch.zeros((), dtype=i32, device=dev),
-                n_over=torch.zeros((), dtype=i32, device=dev),
-                ref=torch.zeros((n, 2), dtype=config.tdtype, device=dev),
-                resorted=False,
-            )
+        skin = empty_skin(config, dev) if uses_skin else None
         rows = []
         for _ in range(n_steps):
             if uses_skin:
                 state, ev, skin = step(params, state, dt, skin)
             else:
                 state, ev = step(params, state, dt)
-            rows.append(_step_counters(ev, state))
-        counters = RolloutCounters(**{
-            k: torch.stack([r[k] for r in rows]) if rows
-            else torch.zeros((0,), dtype=torch.int32, device=dev)
-            for k in (f.name for f in dataclasses.fields(RolloutCounters))
-        })
-        return state, counters
+            rows.append(emit_rollout_record(ev, state, k))
+        if not rows:
+            return state, _empty_records(k, config.tdtype, dev)
+        return state, _stack(rows)
 
     rollout.engine = "standard"
     return rollout

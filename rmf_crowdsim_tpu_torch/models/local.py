@@ -18,7 +18,7 @@ import dataclasses
 import torch
 
 from ..core.state import SimState, TensorDataclass
-from ..ops.neighbors import NeighborSet
+from ..ops.neighbors import NeighborSet, norm
 
 
 class LocalPlanner:
@@ -68,10 +68,6 @@ class ZanlungoParams(TensorDataclass):
 
 def _dot(a, b):
     return (a * b).sum(-1)
-
-
-def _norm(a):
-    return torch.sqrt((a * a).sum(-1))
 
 
 def time_to_collision(rel_vel, rel_pos, agent_radius):
@@ -167,9 +163,9 @@ def zanlungo_from_rows(p: ZanlungoParams, q_position, q_velocity, self_pref,
     fut = mypos + my_vel * t
     ofut = opos + other_vel * t
     d_ij = fut - ofut
-    dist = _norm(d_ij)
+    dist = norm(d_ij)
 
-    pref_speed = _norm(opref)
+    pref_speed = norm(opref)
     stationary = pref_speed < 1e-4
     curr_rel = mypos - opos
     perp_s = torch.stack([-curr_rel[..., 1], curr_rel[..., 0]], dim=-1)
@@ -191,7 +187,7 @@ def zanlungo_from_rows(p: ZanlungoParams, q_position, q_velocity, self_pref,
     use_slerp = (weight > 1.0) & interpolate
     d_ij = torch.where(use_slerp[..., None], d_slerped, d_ij)
 
-    d_norm = _norm(d_ij)
+    d_norm = norm(d_ij)
     d_unit = torch.where(
         (d_norm > 0)[..., None],
         d_ij / torch.where(d_norm > 0, d_norm,
@@ -200,7 +196,7 @@ def zanlungo_from_rows(p: ZanlungoParams, q_position, q_velocity, self_pref,
     )
 
     surface_dist = dist - 2.0 * radius
-    speed_diff = _norm(my_vel - other_vel)
+    speed_diff = norm(my_vel - other_vel)
     safe_t = torch.where(t_i > 0, t_i, torch.ones_like(t_i))[..., None]
     magnitude = weight * p.agent_scale.to(dtype) * speed_diff / safe_t
     magnitude = torch.where((t_i == 0)[..., None] & (speed_diff * weight > 0),

@@ -1,13 +1,22 @@
-"""The bench scene, rebuilt without JAX.
+"""The bench scene and the streaming scene, built without JAX.
 
-Counterpart of ``bench.py:31-123`` (``_bench_config`` and ``build_bench``)
-and of the hotspot of ``compiled_parity_check`` (``bench.py:138-143``):
-a uniform dense Zanlungo crowd (~1.6 m^2 per agent, eyesight 2 m) with
-``ParityVelocity`` + ``Zanlungo``, no sources, built from the same numpy
-seeds so both packages start from the same positions.
+``build_bench`` is the counterpart of ``bench.py:31-123`` (``_bench_config``
+and ``build_bench``) and of the hotspot of ``compiled_parity_check``
+(``bench.py:138-143``): a uniform dense Zanlungo crowd (~1.6 m^2 per
+agent, eyesight 2 m) with ``ParityVelocity`` + ``Zanlungo``, built from
+the same numpy seeds so both packages start from the same positions.
+
+``build_streams`` has no counterpart in ``bench.py`` (which passes no
+sources): the same crowd at a larger capacity, plus a square lattice of
+SourceSinks over the world's interior that stream ``WaypointFollow``
+agents through two waypoints each, so agents spawn, reach waypoints,
+despawn or loop, and are blocked by the 0.4 m spawn clearance.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -15,12 +24,18 @@ import torch
 from .core.config import GridConfig, SimConfig
 from .core.state import make_state
 from .core.step import SimParams, build_rollout, payload_sort_by_key
-from .models.highlevel import ParityVelocity
+from .models.highlevel import ParityVelocity, RouteTable, WaypointFollow
 from .models.local import Zanlungo
+from .models.source_sink import MonotonicCrowd, SourceSink, stack_source_params
 from .ops import zanlungo_bucketed as zb
 from .ops.zanlungo_dense import DenseConfig
 
 HOTSPOT_AGENTS = 48
+# The streaming sources' two waypoints, metres along +x from the source,
+# and their sink radius.
+STREAM_WAYPOINTS = (0.3, 1.25)
+STREAM_SINK_RADIUS = 1.0
+STREAM_RATE = 60.0  # agents/s: one request a step at dt = 1/60
 
 
 def bench_config(n_agents: int, dtype: str = "float32",
@@ -75,26 +90,20 @@ def bench_positions(n_agents: int, side: float, hotspot: bool = False,
     return pos
 
 
-def build_bench(n_agents: int, dtype: str = "float32",
-                backend: str = "grid_pallas", device="cuda",
-                hotspot: bool = False, hotspot_origin=(10.0, 10.0),
-                fused_spills: bool = False):
-    """The bench scene at ``n_agents`` on ``device`` (the card unless the
-    caller names another device): returns (rollout, params, state) like
-    bench.py's ``build_bench``."""
-    config = bench_config(n_agents, dtype=dtype, backend=backend,
-                          fused_spills=fused_spills)
-    hl = ParityVelocity((1.0, 0.0))
-    lp = Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
-                  force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
-                  force_cap=20.0)
-    rollout = build_rollout(config, [hl], [lp])
+def _bench_zanlungo(force_chunk: int = 0) -> Zanlungo:
+    return Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
+                    force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
+                    force_chunk=force_chunk, force_cap=20.0)
+
+
+def _crowd_state(config: SimConfig, n_agents: int, pos: np.ndarray, device):
+    """A state of ``config.capacity`` slots whose first ``n_agents`` hold
+    the bench crowd at ``pos`` (uids and priorities 0..n-1, planners 0),
+    the rest free."""
     f = config.tdtype
-    pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
-                          hotspot_origin=hotspot_origin)
-    state = make_state(config, device=device)
     i32 = torch.int32
-    state = state.replace(
+    st = make_state(config, device=device)
+    crowd = dict(
         position=torch.as_tensor(pos, dtype=f).to(device),
         eyesight=torch.full((n_agents,), 2.0, dtype=f, device=device),
         alive=torch.ones((n_agents,), dtype=torch.bool, device=device),
@@ -102,8 +111,32 @@ def build_bench(n_agents: int, dtype: str = "float32",
         hl_idx=torch.zeros((n_agents,), dtype=i32, device=device),
         lp_idx=torch.zeros((n_agents,), dtype=i32, device=device),
         priority=torch.arange(n_agents, dtype=f, device=device),
-        next_uid=torch.full((), n_agents, dtype=i32, device=device),
     )
+    fields = {}
+    for name, value in crowd.items():
+        full = getattr(st, name).clone()
+        full[:n_agents] = value
+        fields[name] = full
+    return st.replace(next_uid=torch.full((), n_agents, dtype=i32,
+                                          device=device), **fields)
+
+
+def build_bench(n_agents: int, dtype: str = "float32",
+                backend: str = "grid_pallas", device="cuda",
+                hotspot: bool = False, hotspot_origin=(10.0, 10.0),
+                fused_spills: bool = False, force_chunk: int = 0):
+    """The bench scene at ``n_agents`` on ``device`` (the card unless the
+    caller names another device): returns (rollout, params, state) like
+    bench.py's ``build_bench``.  ``force_chunk``: ``Zanlungo``'s query
+    chunk for the table-based backends (``grid``, ``brute``)."""
+    config = bench_config(n_agents, dtype=dtype, backend=backend,
+                          fused_spills=fused_spills)
+    hl = ParityVelocity((1.0, 0.0))
+    lp = _bench_zanlungo(force_chunk)
+    rollout = build_rollout(config, [hl], [lp])
+    pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
+                          hotspot_origin=hotspot_origin)
+    state = _crowd_state(config, n_agents, pos, device)
     params = SimParams(hl=(hl.init_params(device),),
                        lp=(lp.init_params(device),), sources=None)
     return rollout, params, state
@@ -118,10 +151,11 @@ def bench_bucket_config(n_agents: int) -> zb.BucketConfig:
         sub_tiles=c.sub_tiles, tile_size=c.bucket_tile_size)
 
 
-def bench_dense_config(n_agents: int) -> DenseConfig:
-    """The dense layout of the ``grid_dense`` bench scene, as
-    ``build_step`` derives it."""
-    c = bench_config(n_agents, backend="grid_dense")
+def bench_dense_config(n_agents: int, capacity: int = 0) -> DenseConfig:
+    """The dense layout of the ``grid_dense`` bench scene (with
+    ``capacity`` slots: the streaming scene's), as ``build_step`` derives
+    it."""
+    c = stream_config(n_agents, capacity or n_agents, backend="grid_dense")
     return DenseConfig.create(
         c.grid.width, c.grid.height, c.grid.offset, c.max_eyesight,
         c.capacity, tile_size=c.bucket_tile_size,
@@ -151,3 +185,91 @@ def bench_bucketed(n_agents: int, device="cuda", steps: int = 2,
         bcfg, st.position, st.velocity, st.preferred_vel, rec, st.priority,
         st.eyesight, rec, st.alive, use_pack_kernel=True, presorted=True)
     return config, bcfg, params, st, rec, feat_t, bpos, bucket_pos
+
+
+def stream_sources(n_sources: int, side: float) -> np.ndarray:
+    """[S, 2] float64: the centres of a sqrt(S) x sqrt(S) lattice over the
+    bench crowd's interior ``[-(side/2 - 1), side/2 - 1]^2``."""
+    m = math.isqrt(n_sources)
+    if m * m != n_sources:
+        raise ValueError(f"n_sources {n_sources} is not a square")
+    lim = side / 2 - 1.0
+    c = -lim + (np.arange(m) + 0.5) * (2 * lim / m)
+    return np.stack(np.meshgrid(c, c, indexing="ij"), -1).reshape(-1, 2)
+
+
+def stream_routes(src: np.ndarray, dtype: torch.dtype, device) -> RouteTable:
+    """One two-point route per leg of each source: route ``2s`` runs from
+    source ``s`` to its first waypoint, ``2s + 1`` from the first to the
+    second (R = 2S, L = 2)."""
+    w0, w1 = STREAM_WAYPOINTS
+    pts = np.empty((src.shape[0], 2, 2, 2))
+    pts[:, 0, 0] = src
+    pts[:, 0, 1] = src + (w0, 0.0)
+    pts[:, 1, 0] = src + (w0, 0.0)
+    pts[:, 1, 1] = src + (w1, 0.0)
+    return RouteTable(
+        points=torch.as_tensor(pts.reshape(-1, 2, 2), dtype=dtype).to(device),
+        lengths=torch.full((2 * src.shape[0],), 2, dtype=torch.int32,
+                           device=device))
+
+
+def stream_config(n_agents: int, capacity: int, dtype: str = "float32",
+                  backend: str = "grid_pallas",
+                  fused_spills: bool = False) -> SimConfig:
+    """``bench_config(n_agents)`` (world, tiles, buckets, spill capacity
+    sized by the crowd) with ``capacity`` slots."""
+    return dataclasses.replace(
+        bench_config(n_agents, dtype=dtype, backend=backend,
+                     fused_spills=fused_spills),
+        capacity=capacity)
+
+
+def stream_planners(routes: RouteTable):
+    """The streaming scene's planner registries: (``[ParityVelocity,
+    WaypointFollow(routes)]``, ``[Zanlungo]``)."""
+    return ([ParityVelocity((1.0, 0.0)), WaypointFollow(routes)],
+            [_bench_zanlungo()])
+
+
+def build_streams(n_agents: int, capacity: int, n_sources: int,
+                  dtype: str = "float32", backend: str = "grid_pallas",
+                  device="cuda", hotspot: bool = False,
+                  hotspot_origin=(10.0, 10.0), fused_spills: bool = False,
+                  event_capacity: int = 0):
+    """The streaming scene on ``device`` (the card unless the caller names
+    another device): the bench crowd of ``n_agents`` (``ParityVelocity`` at
+    ``hl_idx`` 0, ``Zanlungo``; :func:`stream_config`) in ``capacity``
+    slots, and ``n_sources`` SourceSinks on the lattice of
+    :func:`stream_sources`.  Each source requests ``STREAM_RATE`` agents/s
+    (``MonotonicCrowd``); new agents get eyesight 2, ``WaypointFollow`` at
+    ``hl_idx`` 1 over :func:`stream_routes` and ``Zanlungo``; the
+    waypoints lie ``STREAM_WAYPOINTS`` metres along +x with sink radius
+    ``STREAM_SINK_RADIUS``; odd sources loop forever.  Returns (rollout,
+    params, state); ``event_capacity`` is ``build_rollout``'s."""
+    config = stream_config(n_agents, capacity, dtype=dtype, backend=backend,
+                           fused_spills=fused_spills)
+    f = config.tdtype
+    src = stream_sources(n_sources, config.grid.width)
+    hl, lp = stream_planners(stream_routes(src, f, device))
+    rollout = build_rollout(config, hl, lp, event_capacity=event_capacity)
+    pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
+                          hotspot_origin=hotspot_origin)
+    state = _crowd_state(config, n_agents, pos, device)
+    w0, w1 = STREAM_WAYPOINTS
+    sources = [
+        SourceSink(source=(float(x), float(y)),
+                   waypoints=[(float(x) + w0, float(y)),
+                              (float(x) + w1, float(y))],
+                   radius_sink=STREAM_SINK_RADIUS,
+                   crowd_generator=MonotonicCrowd(STREAM_RATE),
+                   high_level_planner=hl[1], local_planner=lp[0],
+                   agent_eyesight_range=2.0, loop_forever=bool(i % 2))
+        for i, (x, y) in enumerate(src)
+    ]
+    sp = stack_source_params(
+        sources, [1] * n_sources, [0] * n_sources,
+        [[2 * i, 2 * i + 1] for i in range(n_sources)], f, device=device)
+    params = SimParams(hl=tuple(h.init_params(device) for h in hl),
+                       lp=(lp[0].init_params(device),), sources=sp)
+    return rollout, params, state

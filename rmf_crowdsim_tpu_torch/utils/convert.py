@@ -17,11 +17,23 @@ import numpy as np
 import torch
 
 from ..core.state import STATE_TENSOR_FIELDS, SimState
+from ..models.highlevel import RouteTable
 from ..models.local import ZanlungoParams
+from ..models.source_sink import SourceParams
 
 
 def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
+
+
+def _tensor(value, device):
+    return torch.as_tensor(np.array(value)).to(device)
+
+
+def _has_fields(src, names) -> bool:
+    if isinstance(src, Mapping):
+        return all(n in src for n in names)
+    return all(hasattr(src, n) for n in names)
 
 
 def state_from_numpy(arrays, device="cuda", seed: int = 0) -> SimState:
@@ -55,7 +67,25 @@ def zanlungo_params_from_numpy(arrays, device="cuda") -> ZanlungoParams:
     })
 
 
+def route_table_from_numpy(arrays, device="cuda") -> RouteTable:
+    """A :class:`RouteTable` from the JAX RouteTable's ``points`` [R, L,
+    2] and ``lengths`` [R] as numpy arrays."""
+    return RouteTable(points=_tensor(_field(arrays, "points"), device),
+                      lengths=_tensor(_field(arrays, "lengths"), device))
+
+
 def hl_params_from_numpy(arrays: Mapping, device="cuda") -> dict:
-    """A high-level planner's parameter dict (e.g. ``{"vel": [2]}``)."""
-    return {k: torch.as_tensor(np.array(v)).to(device)
+    """A high-level planner's parameter dict: ``{"vel": [2]}``, or
+    ``WaypointFollow``'s ``{"routes": RouteTable, "tol": []}``, whose
+    route table is converted whole."""
+    return {k: (route_table_from_numpy(v, device)
+                if _has_fields(v, ("points", "lengths"))
+                else _tensor(v, device))
             for k, v in arrays.items()}
+
+
+def source_params_from_numpy(arrays, device="cuda") -> SourceParams:
+    """:class:`SourceParams` from the JAX SourceParams' fields as numpy
+    arrays, dtypes kept."""
+    return SourceParams(**{f.name: _tensor(_field(arrays, f.name), device)
+                           for f in dataclasses.fields(SourceParams)})

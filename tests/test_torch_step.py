@@ -22,7 +22,7 @@ import torch
 
 import rmf_crowdsim_tpu as J
 from rmf_crowdsim_tpu.core.step import build_rollout as jax_build_rollout
-from rmf_crowdsim_tpu_torch import ParityVelocity, Zanlungo, make_state, scenes
+from rmf_crowdsim_tpu_torch import ParityVelocity, Zanlungo, scenes
 from rmf_crowdsim_tpu_torch.core.state import STATE_TENSOR_FIELDS
 from rmf_crowdsim_tpu_torch.core.step import SimParams, build_rollout
 from rmf_crowdsim_tpu_torch.ops import pack, spill
@@ -206,22 +206,33 @@ def test_skin_reuses_the_carried_binning():
 
 
 def test_unported_paths_raise():
-    """What the port does not run yet raises: the ``grid`` and ``custom``
-    backends, SourceSink tables and per-uid event streams."""
-    from rmf_crowdsim_tpu_torch.core.config import SimConfig
+    """The paths that raised before they were ported — the ``grid`` and
+    ``custom`` backends, SourceSink tables and per-uid event streams —
+    now build and step on CPU tensors; what still raises is the
+    ``custom`` backend without a ``neighbor_fn`` (a ``ValueError``, as in
+    the JAX package)."""
     from rmf_crowdsim_tpu_torch.core.step import build_step
+    from rmf_crowdsim_tpu_torch.ops.neighbors import brute_neighbors
+
+    def neighbor_fn(st):
+        return brute_neighbors(st.position, st.eyesight, st.alive)
 
     planners = ([ParityVelocity((1.0, 0.0))],
                 [Zanlungo(1.0, 1.0, 0.0, 1.0, 2.0, 0.25)])
-    for backend in ("grid", "custom"):
-        with pytest.raises(NotImplementedError, match=backend):
-            build_step(scenes.bench_config(N, backend=backend), *planners)
-    with pytest.raises(NotImplementedError, match="SourceSink"):
-        build_step(SimConfig(capacity=4), [], [])(
-            SimParams(hl=(), lp=(), sources=object()),
-            make_state(SimConfig(capacity=4), device="cpu"), DT)
-    with pytest.raises(NotImplementedError, match="event streams"):
-        build_rollout(scenes.bench_config(N), *planners, event_capacity=16)
+    _, params, state = scenes.build_bench(N, device="cpu")
+    for backend, fn in (("grid", None), ("custom", neighbor_fn)):
+        st, ev = build_step(scenes.bench_config(N, backend=backend),
+                            *planners, neighbor_fn=fn)(params, state, DT)
+        assert int(ev.neighbor_truncated) == 0
+        assert bool(torch.isfinite(st.position).all())
+    with pytest.raises(ValueError, match="neighbor_fn"):
+        build_step(scenes.bench_config(N, backend="custom"), *planners)
+    rollout, params, state = scenes.build_streams(
+        N, N + 64, 4, device="cpu", event_capacity=16)
+    st, rec = rollout(params, state, DT, 2)
+    assert rec.spawned_uid.shape == (2, 16)
+    assert int(rec.counters.n_spawned.sum()) > 0
+    assert int(st.num_alive) == N + int(rec.counters.n_spawned.sum())
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_for_launch():
