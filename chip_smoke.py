@@ -64,11 +64,31 @@ repository beside it).  Phases, each printing its own line:
    transposes and the feature-plane writers bitwise), then the probes'
    own timing runs with their launch counts set to 0 just before and read
    just after, every probe kernel launched; the stage table and the
-   product and plane times, with the card's name and power limit.
+   product and plane times, with the card's name and power limit;
+7. the ``Simulation`` session (``core/simulation.py``), built through its
+   public API by ``scenes.build_session``: the streaming scene's crowd by
+   ``add_agents`` and its SourceSinks by ``add_source_sink``, their route
+   legs planned by an ``RMFPlanner`` with the native planner.  First the
+   session gate: the 4,096-agent streaming gate scene on ``brute``,
+   ``grid_pallas``, ``grid_pallas`` with fused spills and ``grid_dense``,
+   each through 8 ``step()`` calls and through ``run(8)`` with a
+   recording listener: the same uids alive, positions by uid equal to
+   ``brute``'s to 2e-4, and the same listener sequence from ``step()``
+   as from ``run()`` on each backend.  Then path D, the 1M streaming
+   scene as a session on ``grid_pallas`` with a counting listener: the
+   planning time, 5 warm-up and 20 timed ``step()`` calls (K1, K2 and K3
+   launched once a step, the listener's totals equal to the event masks'
+   sums, every spawned uid new, the population conserved), its host
+   syncs per step (at most 1) and profile, a timed ``run(20)`` (the
+   listener's totals equal to its counters; the replay's host time
+   apart), ``check_state``, the two spatial queries against brute at 4
+   points, and a checkpoint: saved, loaded into a fresh session, and 3
+   more steps of both bitwise equal by uid.
 
 Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
-and for the probe kernels without one; each probe row also has its
+and for the probe kernels without one; K1, K2 and K3 also carry their
+launches on path C and path D; each probe row also has its
 ``share`` of its bound), the card's line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -278,23 +298,12 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
           f"{peak_gb:.2f} GB", flush=True)
 
     n_sync_steps = 3
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            st, _ = rollout(params, st, DT, n_sync_steps)
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # Each warning names the Python line that called the synchronizing op.
-    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
-             if "called a synchronizing" in str(w.message)]
-    sites = {s: syncs.count(s) for s in sorted(set(syncs))}
-    per_step = len(syncs) / n_sync_steps
-    print(f"phase 5 {name} host syncs: {len(syncs)} in {n_sync_steps} "
-          f"steps ({per_step:.2f} per step) at {sites}", flush=True)
-    if per_step > 1:
-        raise AssertionError(f"{name} makes {per_step} host syncs per step")
+
+    def sync_steps():
+        nonlocal st
+        st, _ = rollout(params, st, DT, n_sync_steps)
+
+    _host_syncs(torch, f"phase 5 {name}", sync_steps, n_sync_steps)
 
     def run():
         rollout(params, st, DT, n_sync_steps)
@@ -307,6 +316,29 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     for ms, n, kname in prof["top"][:8]:
         print(f"  {ms:.4f} ms/step  {n:6.1f} launches/step  {kname[:90]}")
     return launches, 1e3 * wall / n_steps, prof, st
+
+
+def _host_syncs(torch, label, run, n_steps):
+    """Calls ``run()`` (``n_steps`` steps) with CUDA's sync debug mode on,
+    counts the host syncs it makes (one warning each), prints them by the
+    Python line that made them, and fails above one a step."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # Each warning names the Python line that called the synchronizing op.
+    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "called a synchronizing" in str(w.message)]
+    sites = {s: syncs.count(s) for s in sorted(set(syncs))}
+    per_step = len(syncs) / n_steps
+    print(f"{label} host syncs: {len(syncs)} in {n_steps} steps "
+          f"({per_step:.2f} per step) at {sites}", flush=True)
+    if per_step > 1:
+        raise AssertionError(f"{label} makes {per_step} host syncs per step")
 
 
 def _stream_check(torch, name):
@@ -580,6 +612,309 @@ def _probes(torch, dev, card, rl) -> list:
     del packed_t, packed_T, feat_t
     torch.cuda.empty_cache()
     return rows
+
+
+def _listeners(T):
+    """(Recorder, Counter): listener classes of the port's API.  Recorder
+    keeps every event in order (kind, uid, and a spawn's position);
+    Counter keeps the spawned uids and counts the rest."""
+
+    class Recorder(T.EventListener):
+        def __init__(self):
+            self.events = []
+
+        def agent_spawned(self, position, agent_id):
+            self.events.append(("spawn", agent_id,
+                                tuple(float(p) for p in position)))
+
+        def waypoint_reached(self, position, agent_id):
+            self.events.append(("waypoint", agent_id))
+
+        def agent_destroyed(self, agent_id):
+            self.events.append(("destroy", agent_id))
+
+    class Counter(T.EventListener):
+        def __init__(self):
+            self.reset()
+
+        def reset(self):
+            self.spawned, self.reached, self.destroyed = [], 0, 0
+
+        def agent_spawned(self, position, agent_id):
+            self.spawned.append(agent_id)
+
+        def waypoint_reached(self, position, agent_id):
+            self.reached += 1
+
+        def agent_destroyed(self, agent_id):
+            self.destroyed += 1
+
+    return Recorder, Counter
+
+
+def _by_uid(torch, st):
+    """(uids, positions, velocities) of the live agents, by uid."""
+    uid = st.uid[st.alive]
+    order = torch.argsort(uid)
+    return (uid[order], st.position[st.alive][order],
+            st.velocity[st.alive][order])
+
+
+def _session_gate(torch, dev, card):
+    """Phase 7a: the streaming gate scene (4,096 agents + hotspot, 16
+    SourceSinks, capacity 4,608) as a ``Simulation`` session
+    (``scenes.build_session``) on four backends, each once through 8
+    ``step()`` calls and once through ``run(8)``, with a recording
+    listener: the same uids alive everywhere, positions by uid equal to
+    ``brute``'s ``step()`` session to ``TOL``, and on each backend the
+    same listener sequence from ``step()`` and from ``run()``.  The
+    sessions raise on any truncation (``on_truncation="raise"``)."""
+    import rmf_crowdsim_tpu_torch as T
+    from rmf_crowdsim_tpu_torch import scenes
+
+    Recorder, _ = _listeners(T)
+    variants = {"brute": dict(backend="brute"),
+                "grid_pallas": dict(backend="grid_pallas"),
+                "grid_pallas fused_spills": dict(backend="grid_pallas",
+                                                 fused_spills=True),
+                "grid_dense": dict(backend="grid_dense")}
+    out = {}
+    for name, kw in variants.items():
+        for via in ("step", "run"):
+            sim, _, _ = scenes.build_session(
+                N_GATE, CAP_GATE, N_GATE_SOURCES, device=dev, hotspot=True,
+                **kw)
+            rec = Recorder()
+            sim.add_event_listener(rec)
+            if via == "step":
+                for _ in range(8):
+                    sim.step(DT)
+            else:
+                sim.run(8, DT)
+            out[name, via] = (*_by_uid(torch, sim.state), rec.events)
+    b_uid, b_pos, _, b_events = out["brute", "step"]
+    kinds = {k: sum(e[0] == k for e in b_events)
+             for k in ("spawn", "waypoint", "destroy")}
+    if kinds["spawn"] == 0 or kinds["waypoint"] == 0:
+        raise AssertionError(f"session gate: no spawns or no waypoints "
+                             f"reached ({kinds})")
+    for name in variants:
+        errs = []
+        for via in ("step", "run"):
+            uid, pos, _, _ = out[name, via]
+            if not torch.equal(uid, b_uid):
+                raise AssertionError(f"session gate {name} {via}(): other "
+                                     f"agents alive than on brute")
+            torch.testing.assert_close(pos, b_pos, rtol=TOL, atol=TOL)
+            errs.append((pos - b_pos).abs().max().item())
+        if out[name, "step"][3] != out[name, "run"][3]:
+            raise AssertionError(f"session gate {name}: step() and run() "
+                                 f"deliver different events")
+        print(f"phase 7 session gate {name}: {N_GATE} agents + hotspot, "
+              f"{N_GATE_SOURCES} SourceSinks, capacity {CAP_GATE}, 8 "
+              f"step() and run(8) on '{card}': {b_uid.shape[0]} uids "
+              f"alive, the same as brute; max abs err vs brute step() "
+              f"{errs[0]:.3g} / run() {errs[1]:.3g} (tol {TOL}); listener "
+              f"sequences of step() and run() identical "
+              f"({len(out[name, 'step'][3])} events: {kinds}); truncated 0",
+              flush=True)
+
+
+def _events_check(torch, name, counter, totals, n_alive, n_before,
+                  next_uid):
+    """The listener's totals equal the device's (``totals``: spawned,
+    despawned, reached), each > 0; every spawned uid is new and unique;
+    the population after each step is the one before plus its spawns
+    minus its despawns (``n_alive`` [T], ``totals`` per step [T, 3])."""
+    got = [len(counter.spawned), counter.destroyed, counter.reached]
+    want = totals.sum(0).tolist()
+    if got != want or min(want) == 0:
+        raise AssertionError(f"{name}: listener totals {got} vs the "
+                             f"device's {want} (spawned, despawned, "
+                             f"reached)")
+    if (len(set(counter.spawned)) != len(counter.spawned)
+            or min(counter.spawned) < next_uid):
+        raise AssertionError(f"{name}: a spawned uid is not new and unique")
+    before = torch.cat([n_alive.new_tensor([n_before]), n_alive[:-1]])
+    if not torch.equal(n_alive, before + totals[:, 0] - totals[:, 1]):
+        raise AssertionError(f"{name}: the population is not conserved")
+    return got
+
+
+def _path_d(torch, dev, card, kernels) -> dict:
+    """Phase 7b, path D: the 1M streaming scene as a ``Simulation``
+    session on ``grid_pallas`` (``scenes.build_session``: the bench crowd
+    by ``add_agents``, 1,024 SourceSinks whose legs an ``RMFPlanner``
+    plans with the native planner) and a counting listener.  5 warm-up
+    ``step()`` calls, 20 timed with the launch counts set to 0 just
+    before and read just after, then its host syncs and profile over 3
+    steps, then a timed ``run(20)``; the events, population, state,
+    queries and a checkpoint resume are checked.  Returns the launch
+    counts of the 20 ``step()`` calls."""
+    import os
+    import tempfile
+
+    import rmf_crowdsim_tpu_torch as T
+    from rmf_crowdsim_tpu_torch import native, scenes
+    from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
+    from rmf_crowdsim_tpu_torch.utils.validate import check_state
+
+    name = "path D session"
+    if not native.native_available():
+        raise AssertionError(f"{name}: the native route planner did not "
+                             f"build")
+    t0 = time.perf_counter()
+    sim, planner, sources = scenes.build_session(
+        N_MAIN, CAP_MAIN, N_SOURCES, device=dev,
+        event_capacity=EVENT_CAPACITY)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    legs = [planner.plan_source_legs(ss) for ss in sources]
+    plan_s = time.perf_counter() - t0
+    if planner.n_routes != 2 * N_SOURCES or min(map(min, legs)) < 0:
+        raise AssertionError(f"{name}: {planner.n_routes} routes planned")
+    print(f"phase 7 {name}: {N_MAIN} agents by add_agents and {N_SOURCES} "
+          f"SourceSinks in {CAP_MAIN} slots, built in {build_s:.2f} s; "
+          f"RMFPlanner (native) planned {planner.n_routes} routes in "
+          f"{plan_s:.3f} s", flush=True)
+    _, Counter = _listeners(T)
+    counter = Counter()
+    sim.add_event_listener(counter)
+    for _ in range(5):
+        sim.step(DT)
+    torch.cuda.synchronize()
+
+    required = ("pack_rows", "zanlungo_bucketed", "spill_window")
+    n_steps = 20
+
+    def window(run):
+        """Runs ``run()`` timed, with the launch counts set to 0 just
+        before and read just after.  Returns (ms/step, launches)."""
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n_steps
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        wrong = {k: n for k, n in launches.items()
+                 if n != (n_steps if k in required else 0)}
+        if wrong:
+            raise AssertionError(f"{name}: launches {launches}, want "
+                                 f"{n_steps} of each of {required}")
+        return ms, launches
+
+    counter.reset()
+    next_uid, n_before = int(sim.state.next_uid), sim.num_agents
+    kept = []
+
+    def steps():
+        for _ in range(n_steps):
+            sim.step(DT)
+            kept.append((sim.last_events, sim.state.alive))
+
+    ms_step, launches = window(steps)
+    totals = torch.stack([torch.stack([
+        ev.spawned.sum(), ev.destroyed.sum(), ev.waypoint_reached.sum()])
+        for ev, _ in kept])
+    n_alive = torch.stack([a.sum() for _, a in kept])
+    del kept
+    got = _events_check(torch, f"{name} step()", counter, totals, n_alive,
+                        n_before, next_uid)
+    print(f"phase 7 {name} step(): {n_steps} steps, {ms_step:.3f} ms/step "
+          f"on '{card}'; launches {launches}; listener spawned, despawned, "
+          f"reached {got} = the event masks' sums, every spawned uid new; "
+          f"alive {n_before} -> {int(n_alive[-1])}, conserved step by step",
+          flush=True)
+
+    def sync_steps():
+        for _ in range(3):
+            sim.step(DT)
+
+    _host_syncs(torch, f"phase 7 {name} step()", sync_steps, 3)
+    prof = device_kernels(sync_steps, 3)
+    print(f"phase 7 {name} step() profile: {prof['launches_per_step']:.1f} "
+          f"kernel launches/step, device busy {prof['device_busy_ms']:.3f} "
+          f"ms/step (3 steps under torch.profiler)", flush=True)
+    for ms, n, kname in prof["top"][:8]:
+        print(f"  {ms:.4f} ms/step  {n:6.1f} launches/step  {kname[:90]}")
+
+    counter.reset()
+    next_uid, n_before = int(sim.state.next_uid), sim.num_agents
+    replay_s = []
+    replay = sim._replay_event_stream
+
+    def timed_replay(*args):
+        t0 = time.perf_counter()
+        replay(*args)
+        replay_s.append(time.perf_counter() - t0)
+
+    sim._replay_event_stream = timed_replay
+    counters = []
+    ms_run, launches_run = window(
+        lambda: counters.append(sim.run(n_steps, DT)))
+    del sim._replay_event_stream
+    c = counters[0]
+    got = _events_check(
+        torch, f"{name} run()", counter,
+        torch.stack([c.n_spawned, c.n_destroyed, c.n_waypoint_reached], 1),
+        c.n_alive, n_before, next_uid)
+    print(f"phase 7 {name} run({n_steps}): {ms_run:.3f} ms/step on "
+          f"'{card}', of which the listener replay {1e3 * replay_s[0]:.3f} "
+          f"ms on the host ({1e3 * replay_s[0] / n_steps:.3f} ms/step); "
+          f"launches {launches_run}; listener spawned, despawned, reached "
+          f"{got} = the RolloutCounters, every spawned uid new; conserved "
+          f"step by step", flush=True)
+
+    check_state(sim.state)
+    st = sim.state
+    pts = [(0.0, 0.0), sources[0].source, (300.5, -200.25), (-600.0, 600.0)]
+    n_found = 0
+    for p in pts:
+        pt = torch.tensor(p, dtype=torch.float64).to(st.position)
+        diff = st.position - pt
+        d = torch.sqrt((diff * diff).sum(-1))
+        d = torch.where(st.alive, d, torch.full_like(d, float("inf")))
+        knn = st.uid[torch.sort(d, stable=True).indices[:8]].tolist()
+        near = st.uid[d < 2.0].tolist()
+        if (sim.get_nearest_neighbours(8, p) != knn
+                or sim.get_neighbours_in_radius(2.0, p) != near):
+            raise AssertionError(f"{name}: the queries at {p} differ from "
+                                 f"brute")
+        n_found += len(near)
+    print(f"phase 7 {name}: check_state clean; get_nearest_neighbours(8) "
+          f"(tiered) and get_neighbours_in_radius(2.0) at {len(pts)} points "
+          f"equal brute on the card ({n_found} agents within 2 m)",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        t0 = time.perf_counter()
+        sim.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        resumed = T.Simulation(sim.config, device=dev)
+        # The same registries: the crowd's planners first, then the
+        # sources (their planner and legs are the first session's).
+        resumed.add_agents([], T.ParityVelocity((1.0, 0.0)),
+                           sources[0].local_planner, 2.0)
+        for ss in sources:
+            resumed.add_source_sink(ss)
+        t0 = time.perf_counter()
+        resumed.load(path)
+        load_s = time.perf_counter() - t0
+    for s in (sim, resumed):
+        for _ in range(3):
+            s.step(DT)
+    a, b = _by_uid(torch, sim.state), _by_uid(torch, resumed.state)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name}: the resumed session differs from "
+                             f"the first after 3 steps")
+    print(f"phase 7 {name} checkpoint: {size / 1e6:.1f} MB saved in "
+          f"{save_s:.2f} s, loaded in {load_s:.2f} s; 3 more step()s of "
+          f"both sessions bitwise equal by uid ({a[0].shape[0]} agents)",
+          flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1095,6 +1430,12 @@ def main() -> int:
 
     probe_rows = _probes(torch, dev, card, rl)
 
+    # ---- phase 7: the Simulation session ----------------------------------
+    _session_gate(torch, dev, card)
+    torch.cuda.empty_cache()
+    launches_d = _path_d(torch, dev, card, kernels)
+    torch.cuda.empty_cache()
+
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
                       "rmf_crowdsim_tpu/ops/pack_pallas.py:206"),
@@ -1119,7 +1460,8 @@ def main() -> int:
          "library_ms": None,
          **({"device_ms": results[name]["device_ms"]}
             if "device_ms" in results[name] else {}),
-         **({"launches_path_c": launches_c[name]}
+         **({"launches_path_c": launches_c[name],
+             "launches_path_d": launches_d[name]}
             if name in paths["main grid_pallas"][1] else {})}
         for name in source
     ] + probe_rows}))

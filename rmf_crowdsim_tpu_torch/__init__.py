@@ -6,14 +6,23 @@ JAX package's; each module's docstring names its counterpart.  Ported so
 far: the step and ``build_rollout`` on all five neighbor backends
 (``brute``, ``grid``, ``grid_pallas`` with or without fused spills,
 ``grid_dense`` and ``custom``), SourceSink streaming (spawn, sinks,
-waypoint routes) with per-uid event streams, and the spatial queries,
-with the force, fused-spill force, dense force, pack and spill-window
-kernels written in CUDA (``csrc/``) and built at their first use.  Not
-yet: the ``Simulation`` host session and the multi-device engines.  The
-package imports ``torch`` and never JAX.
+waypoint routes) with per-uid event streams, the spatial queries, the
+``Simulation`` host session with ``EventListener`` delivery, the RMF route
+planner (``RMFPlanner``, ``native.py``), and the checkpoint, validation
+and profiling utilities, with the force, fused-spill force, dense force,
+pack and spill-window kernels written in CUDA (``csrc/``) and built at
+their first use.  Not yet: the multi-device engines.  The package imports
+``torch`` and never JAX.
 """
 
 from .core.config import GridConfig, SimConfig
+from .core.simulation import (
+    AgentView,
+    EventListener,
+    NeighborTruncationError,
+    OutOfBoundsError,
+    Simulation,
+)
 from .core.state import SimState, StepEvents, make_state
 from .core.step import (
     EventStream,
@@ -31,6 +40,7 @@ from .models.highlevel import (
     WaypointFollow,
 )
 from .models.local import LocalPlanner, NoLocalPlan, Zanlungo, ZanlungoParams
+from .models.rmf import RMFPlanner
 from .models.source_sink import (
     GEN_CUSTOM,
     GEN_MONOTONIC,
@@ -50,7 +60,9 @@ from .ops.neighbors import (
 )
 
 __all__ = [
+    "AgentView",
     "ConstantVelocity",
+    "EventListener",
     "EventStream",
     "GEN_CUSTOM",
     "GEN_MONOTONIC",
@@ -61,14 +73,18 @@ __all__ = [
     "LocalPlanner",
     "MonotonicCrowd",
     "NeighborSet",
+    "NeighborTruncationError",
     "NoLocalPlan",
+    "OutOfBoundsError",
     "ParityVelocity",
     "PoissonCrowd",
+    "RMFPlanner",
     "RolloutCounters",
     "RouteTable",
     "SimConfig",
     "SimParams",
     "SimState",
+    "Simulation",
     "SourceParams",
     "SourceSink",
     "StepEvents",

@@ -11,6 +11,9 @@ sources): the same crowd at a larger capacity, plus a square lattice of
 SourceSinks over the world's interior that stream ``WaypointFollow``
 agents through two waypoints each, so agents spawn, reach waypoints,
 despawn or loop, and are blocked by the 0.4 m spawn clearance.
+``build_session`` is the same scene as a ``Simulation`` session, built
+through its public API, with an ``RMFPlanner`` planning the sources'
+route legs.
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import numpy as np
 import torch
 
 from .core.config import GridConfig, SimConfig
+from .core.simulation import Simulation
 from .core.state import make_state
 from .core.step import SimParams, build_rollout, payload_sort_by_key
 from .models.highlevel import ParityVelocity, RouteTable, WaypointFollow
 from .models.local import Zanlungo
+from .models.rmf import RMFPlanner
 from .models.source_sink import MonotonicCrowd, SourceSink, stack_source_params
 from .ops import zanlungo_bucketed as zb
 from .ops.zanlungo_dense import DenseConfig
@@ -232,6 +237,25 @@ def stream_planners(routes: RouteTable):
             [_bench_zanlungo()])
 
 
+def stream_sinks(src: np.ndarray, hl, lp):
+    """The streaming scene's SourceSinks at ``src`` [S, 2]: each requests
+    ``STREAM_RATE`` agents/s (``MonotonicCrowd``), whose agents get
+    eyesight 2 and the planners ``hl`` and ``lp``; the waypoints lie
+    ``STREAM_WAYPOINTS`` metres along +x with sink radius
+    ``STREAM_SINK_RADIUS``; odd sources loop forever."""
+    w0, w1 = STREAM_WAYPOINTS
+    return [
+        SourceSink(source=(float(x), float(y)),
+                   waypoints=[(float(x) + w0, float(y)),
+                              (float(x) + w1, float(y))],
+                   radius_sink=STREAM_SINK_RADIUS,
+                   crowd_generator=MonotonicCrowd(STREAM_RATE),
+                   high_level_planner=hl, local_planner=lp,
+                   agent_eyesight_range=2.0, loop_forever=bool(i % 2))
+        for i, (x, y) in enumerate(src)
+    ]
+
+
 def build_streams(n_agents: int, capacity: int, n_sources: int,
                   dtype: str = "float32", backend: str = "grid_pallas",
                   device="cuda", hotspot: bool = False,
@@ -256,20 +280,49 @@ def build_streams(n_agents: int, capacity: int, n_sources: int,
     pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
                           hotspot_origin=hotspot_origin)
     state = _crowd_state(config, n_agents, pos, device)
-    w0, w1 = STREAM_WAYPOINTS
-    sources = [
-        SourceSink(source=(float(x), float(y)),
-                   waypoints=[(float(x) + w0, float(y)),
-                              (float(x) + w1, float(y))],
-                   radius_sink=STREAM_SINK_RADIUS,
-                   crowd_generator=MonotonicCrowd(STREAM_RATE),
-                   high_level_planner=hl[1], local_planner=lp[0],
-                   agent_eyesight_range=2.0, loop_forever=bool(i % 2))
-        for i, (x, y) in enumerate(src)
-    ]
+    sources = stream_sinks(src, hl[1], lp[0])
     sp = stack_source_params(
         sources, [1] * n_sources, [0] * n_sources,
         [[2 * i, 2 * i + 1] for i in range(n_sources)], f, device=device)
     params = SimParams(hl=tuple(h.init_params(device) for h in hl),
                        lp=(lp[0].init_params(device),), sources=sp)
     return rollout, params, state
+
+
+def build_session(n_agents: int, capacity: int, n_sources: int,
+                  dtype: str = "float32", backend: str = "grid_pallas",
+                  device="cuda", hotspot: bool = False,
+                  hotspot_origin=(10.0, 10.0), fused_spills: bool = False,
+                  event_capacity: int = 128):
+    """The streaming scene of :func:`build_streams` as a
+    :class:`Simulation` on ``device`` (the card unless the caller names
+    another device), built through the session's API: the bench crowd by
+    ``add_agents`` (``ParityVelocity``, ``Zanlungo``, eyesight 2; uids
+    and priorities 0..n-1), then the ``n_sources`` SourceSinks by
+    ``add_source_sink``, whose agents follow an ``RMFPlanner`` over the
+    world's four boundary walls, a building of one square room (scale
+    0.5, radius 0.3, room for two legs a source).  Each leg is a
+    straight shot, so the planned routes are :func:`stream_routes`' and
+    the session steps as the rollout of :func:`build_streams` does.  ``event_capacity``: the config's
+    ``event_stream_capacity``.  The legs are planned at the session's
+    first step, or by the caller before it (``plan_source_legs``).
+    Returns (session, planner, SourceSinks)."""
+    config = dataclasses.replace(
+        stream_config(n_agents, capacity, dtype=dtype, backend=backend,
+                      fused_spills=fused_spills),
+        event_stream_capacity=event_capacity)
+    side = config.grid.width
+    sim = Simulation(config, device=device)
+    lp = _bench_zanlungo()
+    sim.add_agents(bench_positions(n_agents, side, hotspot=hotspot,
+                                   hotspot_origin=hotspot_origin),
+                   ParityVelocity((1.0, 0.0)), lp, 2.0)
+    h = side / 2
+    planner = RMFPlanner([(-h, -h), (h, -h), (h, h), (-h, h)],
+                         [(0, 1), (1, 2), (2, 3), (3, 0)], scale=0.5,
+                         radius=0.3, max_routes=2 * n_sources,
+                         dtype=config.tdtype)
+    sources = stream_sinks(stream_sources(n_sources, side), planner, lp)
+    for ss in sources:
+        sim.add_source_sink(ss)
+    return sim, planner, sources
