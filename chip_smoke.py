@@ -83,12 +83,38 @@ repository beside it).  Phases, each printing its own line:
    listener's totals equal to its counters; the replay's host time
    apart), ``check_state``, the two spatial queries against brute at 4
    points, and a checkpoint: saved, loaded into a fresh session, and 3
-   more steps of both bitwise equal by uid.
+   more steps of both bitwise equal by uid;
+8. the multi-device engines (``rmf_crowdsim_tpu_torch/parallel``), D
+   shards on the one card over ``ThreadMesh`` (NCCL takes one rank per
+   device).  8a, gates: the world engine on the 4,096-agent bench scene
+   with the 48-agent hotspot (capacity 8,192), 5 steps, at D = 1, 2 and 4
+   in bitwise mode, equal bit for bit by uid, in tolerance mode within
+   2e-4 of it, D = 1 against ``build_rollout`` and ``brute`` to 2e-4 by
+   uid, truncation 0; the crossing scene (tests/test_worldstep.py) at
+   D = 4 bitwise D = 1, counters equal, agents migrating, none lost; the
+   agent-sharded step and the domain-sharded step at D = 4 against the
+   single-device step.  8b, kernels on the extended blocks: one step of
+   the 1M world at D = 4 with the hotspot in interior shard 2, whose K3,
+   K1 and K2 inputs (the spliced plane with halo ids, the merged spill
+   list, the velocity scratch of 3m + the list's rows) are held against
+   the plain versions, K2's writes past row m counted.  8c, the 1M world
+   (``scenes.build_world_bench(1M, 4)``, capacity 1,048,576, m = 262,144
+   a shard): 5 steps of bitwise mode at D = 4 bit for bit D = 1, then in
+   each mode 20 timed steps (ms/step; K1, K2 and K3 launched once a shard
+   and step; no agent lost, stray, overflowing or dropped; migrations >
+   0; truncation 0), its host syncs per step (at most one a shard) and
+   its profile over 3 steps, beside the single-device main path's ms/step
+   in the same call.  8d, the shard proxy (``scenes.build_shard_proxy``,
+   bench.py:162-260): one shard of a 10-shard 1M world at full width, 20
+   timed steps in each mode.  8e: ``ProcessGroupComm`` over NCCL at world
+   size 1, the crossing scene's 40-step rollout bit for bit that over
+   ``ThreadMesh``.
 
 Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
 and for the probe kernels without one; K1, K2 and K3 also carry their
-launches on path C and path D; each probe row also has its
+launches on path C, path D and the bitwise 1M world of 8c; each probe row
+also has its
 ``share`` of its bound), the card's line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises.
 """
@@ -96,7 +122,9 @@ launches on path C and path D; each probe row also has its
 from __future__ import annotations
 
 import json
+import socket
 import sys
+import threading
 import time
 import warnings
 
@@ -118,6 +146,14 @@ FRESH_DEAD_WARM = 12
 GRID_CHUNK = 131_072
 STREAM_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
                    "n_waypoint_reached", "spawn_dropped", "out_of_bounds")
+# Phase 8: shards of the 1M world, the gate world's slots, the shard that
+# holds the hotspot (region 2 of 4 holds (10, 10)), the warm-up steps.
+WORLD_D = 4
+CAP_WORLD_GATE = 8192
+WORLD_SHARD = 2
+WORLD_WARM = 2
+WORLD_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
+                  "n_waypoint_reached", "spawn_dropped", "out_of_bounds")
 
 
 def _device_ms(torch, fn, reps: int, kernel: str) -> float:
@@ -318,10 +354,10 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     return launches, 1e3 * wall / n_steps, prof, st
 
 
-def _host_syncs(torch, label, run, n_steps):
+def _host_syncs(torch, label, run, n_steps, limit=1):
     """Calls ``run()`` (``n_steps`` steps) with CUDA's sync debug mode on,
     counts the host syncs it makes (one warning each), prints them by the
-    Python line that made them, and fails above one a step."""
+    Python line that made them, and fails above ``limit`` a step."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -337,7 +373,7 @@ def _host_syncs(torch, label, run, n_steps):
     per_step = len(syncs) / n_steps
     print(f"{label} host syncs: {len(syncs)} in {n_steps} steps "
           f"({per_step:.2f} per step) at {sites}", flush=True)
-    if per_step > 1:
+    if per_step > limit:
         raise AssertionError(f"{label} makes {per_step} host syncs per step")
 
 
@@ -917,6 +953,403 @@ def _path_d(torch, dev, card, kernels) -> dict:
     return launches
 
 
+# ---- phase 8: the multi-device engines ---------------------------------
+
+
+def _world_by_uid(torch, shards):
+    """(uids, positions, velocities) of the live agents of all shards."""
+    from rmf_crowdsim_tpu_torch.parallel import gather_shards
+
+    return _by_uid(torch, gather_shards(shards))
+
+
+def _world_clean(c, label, migrating=True):
+    """No truncation, overflow, lost arrival or stray agent; migrations
+    where ``migrating``."""
+    bad = {k: int(getattr(c, k).sum()) for k in (
+        "neighbor_truncated", "migration_overflow", "arrival_dropped",
+        "stray")}
+    if any(bad.values()):
+        raise AssertionError(f"{label}: {bad}")
+    if migrating and int(c.migrated.sum()) == 0:
+        raise AssertionError(f"{label}: no agent migrated")
+
+
+def _same(torch, a, b, label):
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        err = (a[1] - b[1]).abs().max().item() if a[0].shape == b[0].shape \
+            else float("nan")
+        raise AssertionError(f"{label}: not bit for bit (max abs position "
+                             f"err {err})")
+
+
+def _world_gates(torch, dev):
+    """8a (see the module docstring)."""
+    from rmf_crowdsim_tpu_torch import ParityVelocity, build_step, scenes
+    from rmf_crowdsim_tpu_torch.parallel import (
+        build_sharded_step, build_world_rollout, gather_shards,
+        make_thread_mesh, shard_state, shard_state_by_region)
+
+    res = {}
+    for inv in ("bitwise", "tolerance"):
+        for d in (1, 2, WORLD_D):
+            rollout, params, shards, _ = scenes.build_world_bench(
+                N_GATE, d, inv, capacity=CAP_WORLD_GATE, device=dev,
+                hotspot=True)
+            shards, c = rollout(params, shards, DT, 5)
+            _world_clean(c, f"8a {inv} D={d}", migrating=False)
+            if int(c.max_cell_occupancy.max()) <= 32:
+                raise AssertionError("8a: the gate world overflows no bucket")
+            res[inv, d] = (_world_by_uid(torch, shards), c)
+    ref = res["bitwise", 1][0]
+    for d in (2, WORLD_D):
+        _same(torch, res["bitwise", d][0], ref, f"8a bitwise D={d}")
+    errs = []
+    for d in (1, 2, WORLD_D):
+        u, p, _ = res["tolerance", d][0]
+        if not torch.equal(u, ref[0]):
+            raise AssertionError(f"8a tolerance D={d}: other uids alive")
+        torch.testing.assert_close(p, ref[1], rtol=TOL, atol=TOL)
+        errs.append((p - ref[1]).abs().max().item())
+    print(f"phase 8a world gate: {N_GATE} agents + hotspot in "
+          f"{CAP_WORLD_GATE} slots, 5 steps: bitwise D=2 and D={WORLD_D} "
+          f"equal D=1 bit for bit by uid (positions and velocities); "
+          f"tolerance D=1,2,{WORLD_D} vs bitwise D=1 max abs err "
+          f"{max(errs):.3g} (tol {TOL}), resorted "
+          f"{res['tolerance', WORLD_D][1].resorted.tolist()}; max tile "
+          f"occupancy {int(res['bitwise', 1][1].max_cell_occupancy.max())};"
+          f" truncated 0", flush=True)
+    for backend in ("grid_pallas", "brute"):
+        rollout, params, st = scenes.build_bench(N_GATE, backend=backend,
+                                                 device=dev, hotspot=True)
+        st, c = rollout(params, st, DT, 5)
+        if int(c.neighbor_truncated.max()):
+            raise AssertionError(f"8a: {backend} truncates")
+        u, p, _ = _by_uid(torch, st)
+        if not torch.equal(u, ref[0]):
+            raise AssertionError(f"8a: {backend} has other uids alive")
+        torch.testing.assert_close(ref[1], p, rtol=TOL, atol=TOL)
+        print(f"phase 8a world D=1 vs build_rollout {backend}: max abs "
+              f"err {(ref[1] - p).abs().max().item():.3g} (tol {TOL})",
+              flush=True)
+
+    crossing = {}
+    for d in (WORLD_D, 1):
+        cfg, hl, lp, params, st = scenes.crossing_scene(device=dev)
+        mesh = make_thread_mesh(d, dev)
+        shards, c = build_world_rollout(cfg, [hl], [lp], mesh)(
+            params, shard_state_by_region(cfg, mesh, st), 1.0, 40)
+        _world_clean(c, f"8a crossing D={d}", migrating=d > 1)
+        crossing[d] = (_world_by_uid(torch, shards), c)
+    _same(torch, crossing[WORLD_D][0], crossing[1][0], "8a crossing")
+    for k in WORLD_COUNTERS:
+        if not torch.equal(getattr(crossing[WORLD_D][1], k),
+                           getattr(crossing[1][1], k)):
+            raise AssertionError(f"8a crossing: {k} differs")
+    cw = crossing[WORLD_D][1]
+    print(f"phase 8a crossing scene, 40 steps: D={WORLD_D} bit for bit D=1 "
+          f"by uid, counters equal (spawned {int(cw.n_spawned.sum())}, "
+          f"despawned {int(cw.n_destroyed.sum())}), migrated "
+          f"{int(cw.migrated.sum())}, no overflow, loss or stray",
+          flush=True)
+
+    config = scenes.bench_config(N_GATE)
+    hl, lp = ParityVelocity((1.0, 0.0)), scenes.bench_zanlungo()
+    _, params, st = scenes.build_bench(N_GATE, device=dev)
+    s1, e1 = build_step(config, [hl], [lp])(params, st, DT)
+    mesh = make_thread_mesh(WORLD_D, dev)
+    shards, events = build_sharded_step(config, [hl], [lp], mesh)(
+        params, shard_state(mesh, st), DT)
+    s2 = gather_shards(shards)
+    torch.testing.assert_close(s2.position, s1.position, rtol=1e-6,
+                               atol=1e-6)
+    if not (torch.equal(s2.alive, s1.alive) and torch.equal(
+            gather_shards(events).spawned, e1.spawned)):
+        raise AssertionError("8a agent-sharded: alive or spawned differ")
+    err_a = (s2.position - s1.position).abs().max().item()
+    s3, e3 = build_step(config, [hl], [lp], world_mesh=mesh)(params, st, DT)
+    if int(e3.neighbor_truncated):
+        raise AssertionError("8a domain-sharded step truncates")
+    u3, p3, _ = _by_uid(torch, s3)
+    u1, p1, _ = _by_uid(torch, s1)
+    if not torch.equal(u3, u1):
+        raise AssertionError("8a domain-sharded: other uids alive")
+    torch.testing.assert_close(p3, p1, rtol=TOL, atol=TOL)
+    print(f"phase 8a agent-sharded step D={WORLD_D} vs one device: max abs "
+          f"err {err_a:.3g} (tol 1e-06), alive and spawned equal; "
+          f"domain-sharded step D={WORLD_D} vs one device by uid: max abs "
+          f"err {(p3 - p1).abs().max().item():.3g} (tol {TOL}), truncated "
+          f"0", flush=True)
+
+
+def _world_kernels(torch, dev):
+    """8b: one step of the 1M world at D = 4 with the hotspot in interior
+    shard WORLD_SHARD, its kernels' inputs captured and each kernel held
+    against its plain version on them."""
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.ops import pack, spill
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+    from rmf_crowdsim_tpu_torch.parallel import worldstep
+
+    rollout, params, shards, _ = scenes.build_world_bench(
+        N_MAIN, WORLD_D, "bitwise", capacity=CAP_MAIN, device=dev,
+        hotspot=True)
+    m = CAP_MAIN // WORLD_D
+    shards, _ = rollout(params, shards, DT, 1)
+    got = {}
+
+    def capture(name, fn, copy):
+        def wrapped(*args, **kw):
+            if (threading.current_thread().name == f"shard-{WORLD_SHARD}"
+                    and name not in got):
+                got[name] = copy(args, kw)
+            return fn(*args, **kw)
+        # pack_rows counts its launches on its module's name, this one.
+        wrapped.launches = 0
+        return wrapped
+
+    def clone_all(args, kw):
+        return ([a.clone() if isinstance(a, torch.Tensor) else a
+                 for a in args], dict(kw))
+
+    patches = [(pack, "pack_rows"), (worldstep, "zanlungo_forces_bucketed"),
+               (worldstep, "spill_window")]
+    originals = [getattr(mod, name) for mod, name in patches]
+    for (mod, name), fn in zip(patches, originals):
+        setattr(mod, name, capture(name, fn, clone_all))
+    try:
+        shards, c = rollout(params, shards, DT, 1)
+    finally:
+        for (mod, name), fn in zip(patches, originals):
+            setattr(mod, name, fn)
+    _world_clean(c, "8b", migrating=False)
+    if set(got) != {n for _, n in patches}:
+        raise AssertionError(f"8b: captured only {sorted(got)}")
+
+    (feat_t, bpos, slots), _ = got["pack_rows"]
+    pk_t, pk_T, _ = pack.pack_rows(feat_t, bpos, slots)
+    pl_t, pl_T = pack.pack_rows_plain(feat_t, bpos, slots)
+    if not (torch.equal(pk_t, pl_t) and torch.equal(pk_T, pl_T)):
+        raise AssertionError("8b: K3 differs from its plain version")
+    (cfg, zp5, packed_t, packed_T), kw1 = got["zanlungo_forces_bucketed"]
+    ip = kw1["int_prio"]
+    ids = packed_t[:, zb.ROW_ID]
+    live = ids >= 0
+    n_halo = int((ids >= m).sum())
+    out_k = zb.zanlungo_forces_bucketed(cfg, zp5, packed_t, packed_T,
+                                        int_prio=ip)
+    out_p = zb.forces_bucketed_plain(cfg, zp5, packed_t, packed_T, ip)
+    torch.testing.assert_close(out_k[live], out_p[live], rtol=TOL, atol=TOL)
+    err1 = (out_k[live] - out_p[live]).abs().max().item()
+    (cfg2, zp5, packed_t, packed_T, rows, tcx, tcy, scratch), kw2 = \
+        got["spill_window"]
+    rid = rows[:, zb.ROW_ID]
+    n_own, n_foreign = int(((rid >= 0) & (rid < m)).sum()), int(
+        (rid >= 3 * m).sum())
+    if n_own == 0 or n_foreign == 0:
+        raise AssertionError(f"8b: shard {WORLD_SHARD} lists {n_own} own "
+                             f"and {n_foreign} neighbour spills")
+    over = torch.zeros((1,), dtype=torch.int32, device=dev)
+    err2, n_q, n_written = _k2_check(torch, spill, zb, cfg2, zp5, packed_t,
+                                     packed_T, rows, tcx, tcy, scratch,
+                                     kw2["int_prio"], over)
+    vel_k = scratch.clone()
+    spill.spill_window(cfg2, zp5, packed_t, packed_T, rows, tcx, tcy, vel_k,
+                       int_prio=kw2["int_prio"])
+    written = (vel_k != scratch).any(1)
+    n_tail = int(written[m:].sum())
+    print(f"phase 8b kernels on shard {WORLD_SHARD}'s extended block "
+          f"({cfg.tx} of the world's columns x {cfg.ty}, {cfg.slots} "
+          f"slots; {feat_t.shape[1]} rows): K3 bitwise its plain version; "
+          f"K1 on {int(live.sum())} live slots ({n_halo} of them halo rows, "
+          f"ids >= m) max abs err {err1:.3g}; K2 on {n_own} own and "
+          f"{n_foreign} neighbour spills of {rows.shape[0]}: {n_q} live "
+          f"window queries, {n_written} scratch rows written, max abs err "
+          f"{err2:.3g} (tol {TOL}); {n_tail} of them past row m = {m} "
+          f"(halo queries, neighbour spills), which the shard drops, and "
+          f"{int(written[:m].sum())} in [0, m), equal to the plain "
+          f"version's", flush=True)
+
+
+def _world_1m(torch, dev, card, kernels):
+    """8c: the 1M world, bitwise D = 4 against D = 1, then each mode timed.
+    Returns the launch counts of the timed bitwise steps."""
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
+
+    outs = {}
+    for d in (WORLD_D, 1):
+        rollout, params, shards, _ = scenes.build_world_bench(
+            N_MAIN, d, "bitwise", capacity=CAP_MAIN, device=dev)
+        shards, c = rollout(params, shards, DT, 5)
+        _world_clean(c, f"8c bitwise D={d}", migrating=d > 1)
+        outs[d] = (_world_by_uid(torch, shards), c)
+        del rollout, shards
+        torch.cuda.empty_cache()
+    _same(torch, outs[WORLD_D][0], outs[1][0], "8c 1M world")
+    print(f"phase 8c 1M world, 5 steps: D={WORLD_D} ({CAP_MAIN // WORLD_D} "
+          f"slots a shard) bit for bit D=1 by uid, positions and "
+          f"velocities; migrated {outs[WORLD_D][1].migrated.tolist()}; max "
+          f"tile occupancy {int(outs[1][1].max_cell_occupancy.max())}; "
+          f"truncated 0", flush=True)
+    del outs
+
+    required = ("pack_rows", "zanlungo_bucketed", "spill_window")
+    n_steps = 20
+    result = {}
+    for inv in ("bitwise", "tolerance"):
+        rollout, params, shards, mesh = scenes.build_world_bench(
+            N_MAIN, WORLD_D, inv, capacity=CAP_MAIN, device=dev)
+        shards, _ = rollout(params, shards, DT, WORLD_WARM)
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        shards, c = rollout(params, shards, DT, n_steps)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        want = {k: n_steps * WORLD_D if k in required else 0
+                for k in kernels}
+        if launches != want:
+            raise AssertionError(f"8c {inv}: launches {launches}, not {want}")
+        _world_clean(c, f"8c {inv}")
+        if not torch.equal(c.n_alive, torch.full_like(c.n_alive, N_MAIN)):
+            raise AssertionError(f"8c {inv}: population not conserved")
+        if not all(bool(torch.isfinite(s.position).all()) for s in shards):
+            raise AssertionError(f"8c {inv}: state not finite")
+        print(f"phase 8c 1M world {inv} D={WORLD_D}: {n_steps} steps, "
+              f"{1e3 * wall:.3f} ms/step on '{card}'; migrated "
+              f"{int(c.migrated.sum())} ({c.migrated.float().mean():.1f} a "
+              f"step), overflow 0, arrivals dropped 0, stray 0; population "
+              f"{N_MAIN} every step; resorted {int(c.resorted.sum())} of "
+              f"{WORLD_D * n_steps} shard-steps; truncated 0; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        state = {"s": shards}
+
+        def steps():
+            state["s"], _ = rollout(params, state["s"], DT, 3)
+
+        _host_syncs(torch, f"phase 8c 1M world {inv}", steps, 3,
+                    limit=WORLD_D)
+
+        def run():
+            steps()
+            torch.cuda.synchronize()
+
+        prof = device_kernels(run, 3)
+        print(f"phase 8c 1M world {inv} profile: "
+              f"{prof['launches_per_step']:.1f} kernel launches/step, device "
+              f"busy {prof['device_busy_ms']:.3f} ms/step, idle share "
+              f"{1 - prof['device_busy_ms'] / (1e3 * wall):.3f}", flush=True)
+        for ms, n, kname in prof["top"][:8]:
+            print(f"  {ms:.4f} ms/step  {n:6.1f} launches/step  {kname[:90]}")
+        result[inv] = launches
+        if inv == "bitwise":
+            # The same steps with the shards' turns off (parallel/comm.py).
+            mesh.turns = False
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state["s"], _ = rollout(params, state["s"], DT, 5)
+            torch.cuda.synchronize()
+            print(f"phase 8c 1M world bitwise with the shards' turns off: "
+                  f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms/step "
+                  f"(5 steps)", flush=True)
+            mesh.turns = True
+        del rollout, shards, state
+        torch.cuda.empty_cache()
+
+    rollout, params, st = scenes.build_bench(N_MAIN, device=dev)
+    st, _ = rollout(params, st, DT, WORLD_WARM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, _ = rollout(params, st, DT, n_steps)
+    torch.cuda.synchronize()
+    print(f"phase 8c the single-device main path in this call: "
+          f"{1e3 * (time.perf_counter() - t0) / n_steps:.3f} ms/step",
+          flush=True)
+    del rollout, st
+    torch.cuda.empty_cache()
+    return result["bitwise"]
+
+
+def _shard_proxy(torch, dev, card):
+    """8d: one shard of the 10-shard 1M world (bench.py:162-260)."""
+    from rmf_crowdsim_tpu_torch import scenes
+
+    for inv in ("bitwise", "tolerance"):
+        rollout, params, shards, _ = scenes.build_shard_proxy(10, inv,
+                                                              device=dev)
+        n = int(shards[0].num_alive)
+        shards, _ = rollout(params, shards, DT, WORLD_WARM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards, c = rollout(params, shards, DT, 20)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 20
+        if int(c.neighbor_truncated.sum()) or not bool(
+                torch.isfinite(shards[0].position).all()):
+            raise AssertionError(f"8d {inv}: truncated or not finite")
+        print(f"phase 8d shard proxy {inv}: one shard of a 10-shard 1M "
+              f"world, {n} agents on {shards[0].capacity} slots, 20 steps, "
+              f"{1e3 * wall:.3f} ms/step on '{card}'; truncated 0",
+              flush=True)
+
+
+def _nccl_world(torch, dev):
+    """8e: the crossing scene's world rollout over ``ProcessGroupComm`` on
+    an NCCL group of one rank, against ``ThreadMesh``."""
+    import torch.distributed as dist
+
+    from rmf_crowdsim_tpu_torch import scenes
+    from rmf_crowdsim_tpu_torch.parallel import (
+        ProcessGroupComm, build_world_rollout, make_thread_mesh,
+        shard_state_by_region)
+    from rmf_crowdsim_tpu_torch.parallel.comm import init_process_group
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    init_process_group("nccl", 0, 1, f"tcp://localhost:{port}")
+    try:
+        out = {}
+        for name in ("nccl", "threads"):
+            cfg, hl, lp, params, st = scenes.crossing_scene(device=dev)
+            mesh = (ProcessGroupComm(device=dev) if name == "nccl"
+                    else make_thread_mesh(1, dev))
+            shards, c = build_world_rollout(cfg, [hl], [lp], mesh)(
+                params, shard_state_by_region(cfg, mesh, st), 1.0, 40)
+            out[name] = (shards[0], c)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    (sn, cn), (st_, ct) = out["nccl"], out["threads"]
+    for k in ("position", "velocity", "alive", "uid"):
+        if not torch.equal(getattr(sn, k), getattr(st_, k)):
+            raise AssertionError(f"8e: {k} differs from ThreadMesh's")
+    for k in WORLD_COUNTERS:
+        if not torch.equal(getattr(cn, k), getattr(ct, k)):
+            raise AssertionError(f"8e: {k} differs from ThreadMesh's")
+    print(f"phase 8e ProcessGroupComm over {backend} (world size 1, "
+          f"{time.perf_counter() - t0:.1f} s with init): the crossing "
+          f"scene's 40-step world rollout ({int(cn.n_spawned.sum())} "
+          f"spawned) bit for bit ThreadMesh's, counters equal", flush=True)
+
+
+def _world_phase(torch, dev, card, kernels):
+    """Phase 8; returns the launch counts of 8c's timed bitwise steps."""
+    _world_gates(torch, dev)
+    torch.cuda.empty_cache()
+    _world_kernels(torch, dev)
+    torch.cuda.empty_cache()
+    launches = _world_1m(torch, dev, card, kernels)
+    _shard_proxy(torch, dev, card)
+    torch.cuda.empty_cache()
+    _nccl_world(torch, dev)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1436,6 +1869,9 @@ def main() -> int:
     launches_d = _path_d(torch, dev, card, kernels)
     torch.cuda.empty_cache()
 
+    # ---- phase 8: the multi-device engines --------------------------------
+    launches_w = _world_phase(torch, dev, card, kernels)
+
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
                       "rmf_crowdsim_tpu/ops/pack_pallas.py:206"),
@@ -1461,7 +1897,8 @@ def main() -> int:
          **({"device_ms": results[name]["device_ms"]}
             if "device_ms" in results[name] else {}),
          **({"launches_path_c": launches_c[name],
-             "launches_path_d": launches_d[name]}
+             "launches_path_d": launches_d[name],
+             "launches_world": launches_w[name]}
             if name in paths["main grid_pallas"][1] else {})}
         for name in source
     ] + probe_rows}))

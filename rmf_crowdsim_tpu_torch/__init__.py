@@ -11,8 +11,11 @@ waypoint routes) with per-uid event streams, the spatial queries, the
 planner (``RMFPlanner``, ``native.py``), and the checkpoint, validation
 and profiling utilities, with the force, fused-spill force, dense force,
 pack and spill-window kernels written in CUDA (``csrc/``) and built at
-their first use.  Not yet: the multi-device engines.  The package imports
-``torch`` and never JAX.
+their first use, and the three multi-device engines (``parallel/``: the
+agent-sharded step, the domain-decomposed force pass and the
+world-sharded step with migration) over a mesh of shards: threads on one
+device (``make_thread_mesh``) or one process per card
+(``ProcessGroupComm``).  The package imports ``torch`` and never JAX.
 """
 
 from .core.config import GridConfig, SimConfig
@@ -51,6 +54,18 @@ from .models.source_sink import (
     SourceSink,
     stack_source_params,
 )
+from .parallel import (
+    ProcessGroupComm,
+    ThreadMesh,
+    WorldCounters,
+    build_sharded_rollout,
+    build_sharded_step,
+    build_world_rollout,
+    build_world_step,
+    init_world_skin,
+    make_thread_mesh,
+    shard_state_by_region,
+)
 from .ops.neighbors import (
     NeighborSet,
     nearest_neighbors,
@@ -78,6 +93,7 @@ __all__ = [
     "OutOfBoundsError",
     "ParityVelocity",
     "PoissonCrowd",
+    "ProcessGroupComm",
     "RMFPlanner",
     "RolloutCounters",
     "RouteTable",
@@ -88,15 +104,24 @@ __all__ = [
     "SourceParams",
     "SourceSink",
     "StepEvents",
+    "ThreadMesh",
     "WaypointFollow",
+    "WorldCounters",
     "Zanlungo",
     "ZanlungoParams",
     "build_rollout",
+    "build_sharded_rollout",
+    "build_sharded_step",
     "build_step",
+    "build_world_rollout",
+    "build_world_step",
+    "init_world_skin",
     "make_state",
+    "make_thread_mesh",
     "nearest_neighbors",
     "nearest_neighbors_grid",
     "nearest_neighbors_tiered",
     "neighbors_in_radius",
+    "shard_state_by_region",
     "stack_source_params",
 ]

@@ -14,7 +14,9 @@ includes whether anything spawned), as one ``.item()``.  Everything else
 audit, the counters and event records — stays on the device without a
 host read.
 
-Not ported: domain decomposition (``world_mesh``).
+With ``world_mesh`` (a ``parallel.comm.Mesh``) the step runs with its
+force pass domain-decomposed over the mesh's shards (``parallel/domain.py``);
+the agent-sharded and world-sharded engines are in ``parallel/``.
 """
 
 from __future__ import annotations
@@ -97,12 +99,9 @@ def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
     takes the k-th free slot (the first S free slots by ``compact_indices``,
     JAX's sorted free-slot prefix); uids are ``next_uid + rank`` over the
     wanting sources, and ``next_uid`` grows by the spawns, as the JAX
-    package assigns them (core/step.py:68-178).  Where JAX scatters with
-    ``mode="drop"``, each spawning source's index is scattered once into
-    an [N+1] map whose last row absorbs the others.  Returns (state,
-    spawned [N] bool, dropped [] int32)."""
-    n = state.capacity
-    dev = state.device
+    package assigns them (core/step.py:68-178), written by
+    :func:`spawn_write`.  Returns (state, spawned [N] bool, dropped []
+    int32)."""
     i32 = torch.int32
     s = sp.source.shape[0]
 
@@ -114,13 +113,31 @@ def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
     rank = torch.cumsum(want.to(i32), 0, dtype=i32) - 1
     can = want & (rank < free.count)
     slot = free.idx[torch.clamp(rank, 0, s - 1).long()]
-    tgt = torch.where(can, slot, n).long()
+    n_can = can.sum(dtype=i32)
+    tgt = torch.where(can, slot, state.capacity)
+    state, spawned = spawn_write(state, sp, tgt,
+                                 (state.next_uid + rank).to(i32), n_can)
+    return state, spawned, n_req.sum(dtype=i32) - n_can
+
+
+def spawn_write(state: SimState, sp: SourceParams, tgt: torch.Tensor,
+                new_uid: torch.Tensor, n_new: torch.Tensor):
+    """Write one agent of each source ``s`` into slot ``tgt[s]`` (``N``
+    for a source that spawns none; the slots of the others distinct) with
+    uid ``new_uid[s]``, and advance ``next_uid`` by ``n_new``.  Where the
+    JAX package scatters with ``mode="drop"``, each source's index is
+    scattered once into an [N+1] map whose last row absorbs the sources
+    that spawn none.  Returns (state, spawned [N] bool)."""
+    n = state.capacity
+    dev = state.device
+    i32 = torch.int32
+    s = sp.source.shape[0]
+    tgt = tgt.long()
     src_of_slot = torch.full((n + 1,), -1, dtype=i32, device=dev)
     src_of_slot.scatter_(0, tgt, torch.arange(s, dtype=i32, device=dev))
     src = src_of_slot[:n]
     spawned = src >= 0
     si = torch.clamp(src, min=0).long()
-    new_uid = (state.next_uid + rank).to(i32)
 
     def put(field, values):
         if field.dim() == 2:
@@ -132,7 +149,6 @@ def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
         return torch.where(m, torch.zeros((), dtype=field.dtype, device=dev),
                            field)
 
-    n_can = can.sum(dtype=i32)
     state = state.replace(
         position=put(state.position, sp.source),
         velocity=zero(state.velocity),
@@ -150,10 +166,9 @@ def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
         # Zanlungo's right-of-way priority defaults to the agent id
         # (zanlungo.rs:94-98).
         priority=put(state.priority, new_uid.to(state.priority.dtype)),
-        next_uid=state.next_uid + n_can,
+        next_uid=state.next_uid + n_new,
     )
-    dropped = n_req.sum(dtype=i32) - n_can
-    return state, spawned, dropped
+    return state, spawned
 
 
 def _hl_phase(config: SimConfig, hl_planners, params: SimParams,
@@ -285,7 +300,7 @@ def _finish_phase(config: SimConfig, hl_planners, params: SimParams,
 
 def build_step(config: SimConfig, hl_planners: Sequence[Any],
                lp_planners: Sequence[Any], neighbor_fn=None,
-               skin_mode: bool = False):
+               skin_mode: bool = False, world_mesh=None):
     """Construct ``step(params, state, dt) -> (state, events)``, or with a
     granted ``skin_mode`` (presorted grid_pallas or grid_dense with a
     positive skin margin; see the returned function's ``skin_mode``
@@ -297,7 +312,12 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
 
     ``neighbor_fn``: required with ``neighbor_backend == "custom"``, a
     function ``(state) -> NeighborSet`` (the reference's SpatialIndex
-    trait, spatial_index.rs:4-14) that sets ``truncated`` honestly."""
+    trait, spatial_index.rs:4-14) that sets ``truncated`` honestly.
+
+    ``world_mesh``: a ``parallel.comm.Mesh``; the grid_pallas force pass
+    then runs domain-decomposed over its shards (``parallel/domain.py``),
+    ``tx`` rounded up to a multiple of the shard count, without presort
+    (core/step.py:444-476).  ``grid_dense`` is single-device only."""
     hl_planners = tuple(hl_planners)
     lp_planners = tuple(lp_planners)
     if config.neighbor_backend == BACKEND_CUSTOM and neighbor_fn is None:
@@ -316,9 +336,18 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             strip_tiles=config.strip_tiles, sub_tiles=config.sub_tiles,
             tile_size=config.bucket_tile_size or None,
         )
+        if world_mesh is not None and bucket_cfg.tx % world_mesh.size:
+            d = world_mesh.size
+            bucket_cfg = dataclasses.replace(bucket_cfg,
+                                             tx=(bucket_cfg.tx // d + 1) * d)
     dense_cfg = None
     if config.neighbor_backend == BACKEND_GRID_DENSE:
         from ..ops.zanlungo_dense import DenseConfig
+
+        if world_mesh is not None:
+            raise ValueError("grid_dense is single-device only; use "
+                             "grid_pallas with a world_mesh or the "
+                             "world-sharded engine")
 
         dense_cfg = DenseConfig.create(
             config.grid.width, config.grid.height, config.grid.offset,
@@ -326,9 +355,10 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             tile_size=config.bucket_tile_size or None,
             col_headroom=config.dense_col_headroom,
         )
-    # The dense layout IS the sorted order, so grid_dense implies presort.
-    presort = bool((config.presort and bucket_cfg is not None)
-                   or dense_cfg is not None)
+    # The dense layout IS the sorted order, so grid_dense implies presort;
+    # a domain-sharded pass keeps the plain binning.
+    presort = bool(((config.presort and bucket_cfg is not None)
+                    or dense_cfg is not None) and world_mesh is None)
     sort_cfg = dense_cfg if dense_cfg is not None else bucket_cfg
     skin_margin = 0.0
     if sort_cfg is not None:
@@ -436,6 +466,7 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                         dual_row=config.dual_row,
                         binning=binning,
                         fused_spills=config.fused_spills,
+                        world_mesh=world_mesh,
                     )
                     max_occ = torch.maximum(max_occ, occ)
                     truncated = truncated + dropped

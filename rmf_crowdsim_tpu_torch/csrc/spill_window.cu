@@ -64,9 +64,9 @@
 //      pass into a 32-entry list, the TTC and force passes over it, an
 //      exact re-walk past 32 hits (counted in the optional `overflow`).
 //      In block i = 1 the last warp takes the own row meanwhile, its lanes
-//      splitting the candidates and reducing in a fixed order: one thread
-//      walking ~220 candidates twice with the oracle math took ~40 us
-//      on an H100.
+//      splitting the candidates and adding the hits' forces in candidate
+//      order (oracle_velocity): one thread walking ~220 candidates twice
+//      with the oracle math took ~40 us on an H100.
 //   4. The rows are written in place: no host read of the spill count and
 //      no pass outside the kernel.
 //
@@ -223,10 +223,14 @@ __device__ __forceinline__ void oracle_force(const Params& zp, float t_i,
 
 // rec + F / m of the own-row query q in the models/local.py math, over
 // the candidates of its ranges that its mask takes; run by one whole warp.
-// Lane l takes every 32nd candidate of the ranges from the l-th on; the
-// minimum time to collision and the force sums are then reduced across
-// the lanes in a fixed order, so the result does not vary from run to
-// run.
+// The minimum time to collision: lane l takes every 32nd candidate of the
+// ranges from the l-th on, then a minimum across the lanes (order-free).
+// The forces: the lanes compute 32 consecutive candidates at a time, and
+// the hits' forces are added in candidate order, one shuffle each, so the
+// sum is a single walk's, bit for bit, wherever the candidates sit in the
+// stage.  The world engine needs that: its spill list holds a shard's
+// spills and its neighbours', so a spill's candidates sit at other stage
+// places on D shards than on one.
 __device__ __forceinline__ float2 oracle_velocity(const Query& q,
                                                   const Params& zp,
                                                   const float4* P,
@@ -234,19 +238,17 @@ __device__ __forceinline__ float2 oracle_velocity(const Query& q,
                                                   const int (&lo)[4],
                                                   const int (&hi)[4]) {
   const int lane = threadIdx.x & 31;
-  auto lane_walk = [&](auto&& f) {
+  float t_i = CUDART_INF_F;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      for (int j = lo[k] + lane; j < hi[k]; j += 32) {
-        const float4 p = P[j];
-        if (pair_mask(q, p.x, p.y, p.z)) f(p, V[j]);
+  for (int k = 0; k < 4; ++k) {
+    for (int j = lo[k] + lane; j < hi[k]; j += 32) {
+      const float4 p = P[j];
+      if (pair_mask(q, p.x, p.y, p.z)) {
+        const float4 v = V[j];
+        t_i = fminf(t_i, oracle_ttc(q, v.x, v.y, p.x, p.y, zp.agent_radius));
       }
     }
-  };
-  float t_i = CUDART_INF_F;
-  lane_walk([&](const float4& p, const float4& v) {
-    t_i = fminf(t_i, oracle_ttc(q, v.x, v.y, p.x, p.y, zp.agent_radius));
-  });
+  }
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1)
     t_i = fminf(t_i, __shfl_xor_sync(FULL_MASK, t_i, d));
@@ -254,13 +256,28 @@ __device__ __forceinline__ float2 oracle_velocity(const Query& q,
   if (isfinite(t_i)) {
     float fx = 0.f;
     float fy = 0.f;
-    lane_walk([&](const float4& p, const float4& v) {
-      oracle_force(zp, t_i, q, p.x, p.y, v.x, v.y, v.z, v.w, p.w, fx, fy);
-    });
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      fx += __shfl_xor_sync(FULL_MASK, fx, d);
-      fy += __shfl_xor_sync(FULL_MASK, fy, d);
+    for (int k = 0; k < 4; ++k) {
+      for (int base = lo[k]; base < hi[k]; base += 32) {
+        const int j = base + lane;
+        float cfx = 0.f;
+        float cfy = 0.f;
+        bool hit = false;
+        if (j < hi[k]) {
+          const float4 p = P[j];
+          if (pair_mask(q, p.x, p.y, p.z)) {
+            const float4 v = V[j];
+            oracle_force(zp, t_i, q, p.x, p.y, v.x, v.y, v.z, v.w, p.w, cfx,
+                         cfy);
+            hit = true;
+          }
+        }
+        for (unsigned b = __ballot_sync(FULL_MASK, hit); b; b &= b - 1) {
+          const int src = __ffs(b) - 1;
+          fx += __shfl_sync(FULL_MASK, cfx, src);
+          fy += __shfl_sync(FULL_MASK, cfy, src);
+        }
+      }
     }
     o.x = q.rx + fx / zp.agent_mass;
     o.y = q.ry + fy / zp.agent_mass;

@@ -279,11 +279,23 @@ class Zanlungo(LocalPlanner):
                    self_pref, use_pack_kernel: bool = False,
                    spill_capacity: int = 0, presorted: bool = False,
                    int_prio: bool = False, dual_row: bool = False,
-                   binning=None, fused_spills: bool = False):
+                   binning=None, fused_spills: bool = False,
+                   world_mesh=None):
         """Fused neighbor-search + force path (the grid_pallas backend;
         ops/zanlungo_bucketed.py).  Returns (vel [N,2], max tile
-        occupancy, dropped).  The JAX ``world_mesh`` branch is not
-        ported."""
+        occupancy, dropped).  With ``world_mesh`` (a
+        ``parallel.comm.Mesh``) the force pass runs domain-decomposed over
+        its shards (parallel/domain.py).  NARROWING, as in the JAX
+        package: that branch has no spill repair; ``spill_capacity`` is
+        ignored and bucket overflow surfaces through ``dropped``."""
+        if world_mesh is not None:
+            from ..parallel.domain import zanlungo_fused_domain
+
+            return zanlungo_fused_domain(
+                world_mesh, bucket_cfg, params, state.position,
+                state.velocity, self_pref, state.preferred_vel,
+                state.priority, state.eyesight, state.alive, rec_vel,
+                int_prio=int_prio, dual_row=dual_row)
         from ..ops.zanlungo_bucketed import zanlungo_fused
 
         return zanlungo_fused(

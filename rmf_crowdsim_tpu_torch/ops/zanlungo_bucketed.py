@@ -146,23 +146,37 @@ class BucketConfig:
 # ---------------------------------------------------------------------------
 
 
-def tile_coords(cfg: BucketConfig, position: torch.Tensor):
+def tile_coords(cfg: BucketConfig, position: torch.Tensor, col_clip=None,
+                col_shift: int = 0):
     """(tcx [N], tcy [N]) int32 supertile coordinates, clipped into the
     world: ``floor((p - offset) * (1 / tile_size))`` in the position dtype
-    with a Python-float reciprocal, bit for bit the JAX computation."""
+    with a Python-float reciprocal, bit for bit the JAX computation.
+
+    ``col_clip``: (lo, hi) bounds of the column in place of (0, tx - 1),
+    as the JAX ``tile_key`` takes them (zanlungo_pallas.py:217).
+    ``col_shift``: an integer subtracted from the column before the clip,
+    so a shard of the world engine bins global positions into its own
+    block of columns with the same float operations at every shard count
+    (the JAX engine bins positions shifted by a float instead)."""
     inv_tile = 1.0 / cfg.tile_size
     rel_x = (position[:, 0] - cfg.offset[0]) * inv_tile
     rel_y = (position[:, 1] - cfg.offset[1]) * inv_tile
-    tcx = torch.clamp(torch.floor(rel_x).to(torch.int32), 0, cfg.tx - 1)
+    lo, hi = col_clip if col_clip is not None else (0, cfg.tx - 1)
+    tcx = torch.floor(rel_x).to(torch.int32)
+    if col_shift:
+        tcx = tcx - int(col_shift)
+    tcx = torch.clamp(tcx, lo, hi)
     tcy = torch.clamp(torch.floor(rel_y).to(torch.int32), 0, cfg.ty - 1)
     return tcx, tcy
 
 
 def tile_key(cfg: BucketConfig, position: torch.Tensor,
-             alive: torch.Tensor) -> torch.Tensor:
+             alive: torch.Tensor, col_clip=None,
+             col_shift: int = 0) -> torch.Tensor:
     """Supertile sort key per agent [N] int32: flat tile id, ``n_tiles``
-    for dead agents (they sort last)."""
-    tcx, tcy = tile_coords(cfg, position)
+    for dead agents (they sort last).  ``col_clip``, ``col_shift``: see
+    :func:`tile_coords`."""
+    tcx, tcy = tile_coords(cfg, position, col_clip, col_shift)
     tid = tcx * cfg.ty + tcy
     return torch.where(alive, tid, torch.full_like(tid, cfg.n_tiles))
 
@@ -197,7 +211,7 @@ def rank_from_sorted_key(cfg: BucketConfig, sorted_tid: torch.Tensor):
 def bucketize(cfg: BucketConfig, position, velocity, pref_committed,
               self_pref, priority, eyesight, rec_vel, alive,
               use_pack_kernel: bool = False, presorted: bool = False,
-              binning=None):
+              binning=None, col_clip=None, col_shift: int = 0):
     """Pack agent features into the bucketed layout
     (zanlungo_pallas.py:280-413).
 
@@ -210,13 +224,16 @@ def bucketize(cfg: BucketConfig, position, velocity, pref_committed,
     :func:`rank_from_sorted_key` (presorted only); agents that died since
     are packed inert (sentinel position, id -1).  ``use_pack_kernel``
     only decides, as in the JAX package, whether feature row 13 carries
-    the bucket slot: both settings pack through kernel K3."""
+    the bucket slot: both settings pack through kernel K3.
+    ``col_clip``, ``col_shift``: bounds and shift of the binning column
+    (:func:`tile_coords`); the packed rows keep ``position``."""
     from .pack import pack_rows
 
     feat_t, bpos_sorted, bucket_pos, max_occ, n_bucket_over = feature_rows(
         cfg, position, velocity, pref_committed, self_pref, priority,
         eyesight, rec_vel, alive, use_pack_kernel=use_pack_kernel,
-        presorted=presorted, binning=binning)
+        presorted=presorted, binning=binning, col_clip=col_clip,
+        col_shift=col_shift)
     packed_t, packed_T, pack_overflow = pack_rows(feat_t, bpos_sorted,
                                                   cfg.slots)
     dropped = (n_bucket_over + pack_overflow).to(torch.int32)
@@ -226,7 +243,7 @@ def bucketize(cfg: BucketConfig, position, velocity, pref_committed,
 def feature_rows(cfg: BucketConfig, position, velocity, pref_committed,
                  self_pref, priority, eyesight, rec_vel, alive,
                  use_pack_kernel: bool = False, presorted: bool = False,
-                 binning=None):
+                 binning=None, col_clip=None, col_shift: int = 0):
     """The binning half of :func:`bucketize`: returns (feat_t [NUM_F, N]
     f32 contiguous, tile-sorted — K3's input; bpos_sorted [N] int32;
     bucket_pos [N] int32 in agent order; max_occ; n_bucket_over)."""
@@ -240,7 +257,7 @@ def feature_rows(cfg: BucketConfig, position, velocity, pref_committed,
         assert presorted, "binning reuse requires presorted state"
         bpos_sorted, max_occ, n_bucket_over = binning
     else:
-        key = tile_key(cfg, position, alive)
+        key = tile_key(cfg, position, alive, col_clip, col_shift)
         if presorted:
             sorted_tid = key
         else:

@@ -14,6 +14,14 @@ despawn or loop, and are blocked by the 0.4 m spawn clearance.
 ``build_session`` is the same scene as a ``Simulation`` session, built
 through its public API, with an ``RMFPlanner`` planning the sources'
 route legs.
+
+``crossing_scene`` is the JAX package's world-engine test scene
+(tests/test_worldstep.py:34-76): sources on the left edge of a 48 m
+world, sinks on the right, agents crossing every region boundary.
+``build_world_bench`` is the bench scene on the world-sharded engine
+(``parallel/worldstep.py``), its state split by region over a
+``ThreadMesh``; ``build_shard_proxy`` copies ``bench.py:162-260``'s world
+of one shard of a D-shard bench world at full width, on one shard.
 """
 
 from __future__ import annotations
@@ -28,7 +36,12 @@ from .core.config import GridConfig, SimConfig
 from .core.simulation import Simulation
 from .core.state import make_state
 from .core.step import SimParams, build_rollout, payload_sort_by_key
-from .models.highlevel import ParityVelocity, RouteTable, WaypointFollow
+from .models.highlevel import (
+    ConstantVelocity,
+    ParityVelocity,
+    RouteTable,
+    WaypointFollow,
+)
 from .models.local import Zanlungo
 from .models.rmf import RMFPlanner
 from .models.source_sink import MonotonicCrowd, SourceSink, stack_source_params
@@ -95,7 +108,9 @@ def bench_positions(n_agents: int, side: float, hotspot: bool = False,
     return pos
 
 
-def _bench_zanlungo(force_chunk: int = 0) -> Zanlungo:
+def bench_zanlungo(force_chunk: int = 0) -> Zanlungo:
+    """The bench scene's local planner (bench.py:95-100); ``force_chunk``:
+    the query chunk of the table-based backends."""
     return Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
                     force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
                     force_chunk=force_chunk, force_cap=20.0)
@@ -137,7 +152,7 @@ def build_bench(n_agents: int, dtype: str = "float32",
     config = bench_config(n_agents, dtype=dtype, backend=backend,
                           fused_spills=fused_spills)
     hl = ParityVelocity((1.0, 0.0))
-    lp = _bench_zanlungo(force_chunk)
+    lp = bench_zanlungo(force_chunk)
     rollout = build_rollout(config, [hl], [lp])
     pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
                           hotspot_origin=hotspot_origin)
@@ -234,7 +249,7 @@ def stream_planners(routes: RouteTable):
     """The streaming scene's planner registries: (``[ParityVelocity,
     WaypointFollow(routes)]``, ``[Zanlungo]``)."""
     return ([ParityVelocity((1.0, 0.0)), WaypointFollow(routes)],
-            [_bench_zanlungo()])
+            [bench_zanlungo()])
 
 
 def stream_sinks(src: np.ndarray, hl, lp):
@@ -313,7 +328,7 @@ def build_session(n_agents: int, capacity: int, n_sources: int,
         event_stream_capacity=event_capacity)
     side = config.grid.width
     sim = Simulation(config, device=device)
-    lp = _bench_zanlungo()
+    lp = bench_zanlungo()
     sim.add_agents(bench_positions(n_agents, side, hotspot=hotspot,
                                    hotspot_origin=hotspot_origin),
                    ParityVelocity((1.0, 0.0)), lp, 2.0)
@@ -326,3 +341,109 @@ def build_session(n_agents: int, capacity: int, n_sources: int,
     for ss in sources:
         sim.add_source_sink(ss)
     return sim, planner, sources
+
+
+def build_world_bench(n_agents: int, d: int, invariance: str = "bitwise",
+                      capacity: int = 0, device="cuda",
+                      hotspot: bool = False, hotspot_origin=(10.0, 10.0)):
+    """The bench scene of :func:`build_bench` on the world-sharded engine
+    over a ``ThreadMesh`` of ``d`` shards on ``device`` (the card unless
+    the caller names another device), in ``sharding_invariance`` mode
+    ``invariance``, with ``capacity`` slots (default: ``n_agents`` rounded
+    up to a multiple of ``d``).  A region's crowd must fit a shard's
+    ``capacity / d`` slots: raise the capacity for that, the crowd stays.
+    Returns (rollout, params, shards, mesh)."""
+    from .parallel.comm import make_thread_mesh
+    from .parallel.worldstep import build_world_rollout, shard_state_by_region
+
+    cap = capacity or -(-n_agents // d) * d
+    config = dataclasses.replace(bench_config(n_agents), capacity=cap,
+                                 sharding_invariance=invariance)
+    mesh = make_thread_mesh(d, device)
+    hl = ParityVelocity((1.0, 0.0))
+    lp = bench_zanlungo()
+    pos = bench_positions(n_agents, config.grid.width, hotspot=hotspot,
+                          hotspot_origin=hotspot_origin)
+    shards = shard_state_by_region(
+        config, mesh, _crowd_state(config, n_agents, pos, "cpu"))
+    params = SimParams(hl=(hl.init_params(mesh.device),),
+                       lp=(lp.init_params(mesh.device),), sources=None)
+    return (build_world_rollout(config, [hl], [lp], mesh), params, shards,
+            mesh)
+
+
+def build_shard_proxy(d: int = 10, invariance: str = "bitwise",
+                      device="cuda"):
+    """One shard of the ``d``-shard bench world at full width
+    (bench.py:162-260 ``time_shard_proxy``): the 1M bench world's tiles
+    split over ``d`` shards, a world as wide as one shard's extended
+    block (its ``cols_per`` columns and two halo columns a side) and as
+    high as the bench world, fully populated at the bench density
+    (uniform, seed 0), on the world engine over one shard on ``device``
+    (the card unless the caller names another device), so a step is a
+    shard's whole body with its collectives degenerate.  Returns
+    (rollout, params, shards, mesh)."""
+    from .parallel.comm import make_thread_mesh
+    from .parallel.worldstep import build_world_rollout, shard_state_by_region
+
+    n_world = 1_000_000
+    world = bench_config(n_world)
+    bcfg = bench_bucket_config(n_world)
+    tx = bcfg.tx + (-bcfg.tx) % d
+    width = (tx // d + 2 * 2) * bcfg.tile_size
+    height = world.grid.height
+    n = int(round(n_world * (width * height)
+                  / (world.grid.width * world.grid.height)))
+    n = (n + 7) // 8 * 8
+    config = dataclasses.replace(
+        world, capacity=n,
+        grid=GridConfig(width=width, height=height, cell_size=2.0,
+                        offset=(0.0, world.grid.offset[1])),
+        spill_capacity=max(128, n // 4096), sharding_invariance=invariance)
+    rng = np.random.default_rng(0)
+    y0, h = config.grid.offset[1], config.grid.height
+    pos = np.stack([rng.uniform(1.0, config.grid.width - 1.0, n),
+                    rng.uniform(y0 + 1.0, y0 + h - 1.0, n)], axis=-1)
+    mesh = make_thread_mesh(1, device)
+    hl = ParityVelocity((1.0, 0.0))
+    lp = bench_zanlungo()
+    shards = shard_state_by_region(config, mesh,
+                                   _crowd_state(config, n, pos, "cpu"))
+    params = SimParams(hl=(hl.init_params(mesh.device),),
+                       lp=(lp.init_params(mesh.device),), sources=None)
+    return (build_world_rollout(config, [hl], [lp], mesh), params, shards,
+            mesh)
+
+
+def crossing_scene(capacity: int = 128, dual_row: bool = False,
+                   invariance: str = "bitwise", tile: float = 0.0,
+                   spill: int = 0, device="cuda"):
+    """tests/test_worldstep.py:34-76 on ``device`` (the card unless the
+    caller names another device): three ``MonotonicCrowd(1.0)`` sources at
+    x = 2 with sinks at x = 45 in a 48 m world of 3 m tiles, agents at
+    1.5 m/s (``ConstantVelocity``) with Zanlungo forces, the state empty
+    (seed 3).  Returns (config, hl, lp, params, state)."""
+    cfg = SimConfig(
+        capacity=capacity,
+        grid=GridConfig(width=48.0, height=48.0, cell_size=3.0,
+                        offset=(0.0, 0.0)),
+        neighbor_backend="grid_pallas", max_eyesight=3.0,
+        bucket_capacity=16, strip_tiles=6, sub_tiles=6, dtype="float32",
+        on_truncation="ignore", dual_row=dual_row,
+        sharding_invariance=invariance, bucket_tile_size=tile,
+        spill_capacity=spill)
+    hl = ConstantVelocity((1.5, 0.0))
+    lp = Zanlungo(agent_scale=1.0, obstacle_scale=1.0, reaction_time=0.0,
+                  force_distance=1.0, agent_mass=2.0, agent_radius=0.25,
+                  force_cap=10.0)
+    sources = [SourceSink(source=(2.0, y), waypoints=[(45.0, y)],
+                          radius_sink=1.5,
+                          crowd_generator=MonotonicCrowd(1.0),
+                          high_level_planner=hl, local_planner=lp,
+                          agent_eyesight_range=3.0)
+               for y in (12.0, 24.0, 36.0)]
+    sp = stack_source_params(sources, [0] * 3, [0] * 3, [[-1]] * 3,
+                             cfg.tdtype, device=device)
+    params = SimParams(hl=(hl.init_params(device),),
+                       lp=(lp.init_params(device),), sources=sp)
+    return cfg, hl, lp, params, make_state(cfg, seed=3, device=device)

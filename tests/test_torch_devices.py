@@ -22,7 +22,16 @@ from rmf_crowdsim_tpu_torch.core.config import SimConfig
 from rmf_crowdsim_tpu_torch.core.state import STATE_TENSOR_FIELDS
 from rmf_crowdsim_tpu_torch.models.local import ZanlungoParams
 from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as tzb
+from rmf_crowdsim_tpu_torch.parallel import (
+    init_world_skin,
+    make_thread_mesh,
+    shard_state_by_region,
+)
 from rmf_crowdsim_tpu_torch.utils import convert
+
+
+# A world the world-sharded engine takes (grid_pallas, 2 shards).
+_WORLD = scenes.bench_config(64)
 
 
 def _state_arrays():
@@ -37,7 +46,10 @@ def _tensor_of(result):
     if isinstance(result, dict):
         return next(iter(result.values()))
     if isinstance(result, tuple):          # build_bench: (rollout, params, state)
-        return result[2].position
+        st = result[2]                     # build_world_bench: shards
+        return (st[0] if isinstance(st, list) else st).position
+    if isinstance(result, torch.device):   # a mesh's device
+        return torch.zeros((), device=result)
     if isinstance(result, ZanlungoParams):
         return result.agent_mass
     return result.position                 # SimState
@@ -61,6 +73,12 @@ ENTRY_POINTS = {
     "ParityVelocity.init_params": lambda: ParityVelocity(
         (1.0, 0.0)).init_params(),
     "sentinel_rows": lambda: tzb.sentinel_rows(8),
+    "make_thread_mesh": lambda: make_thread_mesh(2).device,
+    "shard_state_by_region": lambda: shard_state_by_region(
+        _WORLD, make_thread_mesh(2), make_state(_WORLD, device="cpu"))[0],
+    "init_world_skin": lambda: init_world_skin(_WORLD,
+                                               make_thread_mesh(2))[0],
+    "build_world_bench": lambda: scenes.build_world_bench(64, 2),
 }
 
 
