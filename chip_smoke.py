@@ -108,15 +108,26 @@ repository beside it).  Phases, each printing its own line:
    bench.py:162-260): one shard of a 10-shard 1M world at full width, 20
    timed steps in each mode.  8e: ``ProcessGroupComm`` over NCCL at world
    size 1, the crossing scene's 40-step rollout bit for bit that over
-   ``ThreadMesh``.
+   ``ThreadMesh``;
+9. the entry points: 9a, the port's bench (``rmf_crowdsim_tpu_torch.bench``)
+   at its defaults, in this process: its brute gate, the 1M
+   ``grid_pallas`` headline, the three shard proxies (D = 10 in both
+   modes, D = 16 in tolerance mode), the 10k-agent RMF hall with its host
+   planning, and 1k and 100k agents, with the launch counts set to 0 just
+   before and read just after (K1, K2 and K3 launched, K1b and K4 not),
+   every cell a positive number; its JSON on the line that starts with
+   ``phase 9 bench: ``.  9b, ``tools.validate_highD`` at D = 16: the
+   halo table, then the crossing scene in bitwise mode equal to D = 1 bit
+   for bit with migrations, and in tolerance mode within 1e-5 with the
+   lifecycle counters equal.
 
 Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
 and for the probe kernels without one; K1, K2 and K3 also carry their
-launches on path C, path D and the bitwise 1M world of 8c; each probe row
-also has its
-``share`` of its bound), the card's line, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises.
+launches on path C, path D, the bitwise 1M world of 8c and the bench of
+9a; each probe row also has its ``share`` of its bound), the card's
+line, and as the last line ``{"ok": true, "device": {...}}``.  Any
+failure raises.
 """
 
 from __future__ import annotations
@@ -152,6 +163,8 @@ WORLD_D = 4
 CAP_WORLD_GATE = 8192
 WORLD_SHARD = 2
 WORLD_WARM = 2
+# The kernels of the main path (grid_pallas), which the bench also runs.
+MAIN_KERNELS = ("pack_rows", "zanlungo_bucketed", "spill_window")
 WORLD_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
                   "n_waypoint_reached", "spawn_dropped", "out_of_bounds")
 
@@ -1350,6 +1363,59 @@ def _world_phase(torch, dev, card, kernels):
     return launches
 
 
+def _bench_phase(kernels, card):
+    """9a: the port's bench (``rmf_crowdsim_tpu_torch.bench``) at its
+    defaults, in this process, with the launch counts set to 0 just before
+    and read just after; returns them."""
+    from rmf_crowdsim_tpu_torch import bench
+
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = bench.run()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    missing = [k for k in MAIN_KERNELS if launches[k] == 0]
+    stray = [k for k in launches if k not in MAIN_KERNELS and launches[k]]
+    if missing or stray:
+        raise AssertionError(f"9a bench: never launched {missing}, "
+                             f"launched {stray}")
+    extra = result["extra"]
+    if extra["compiled_parity"] is not True or (
+            extra["neighbor_backend"] != "grid_pallas"):
+        raise AssertionError(f"9a bench: gate or backend wrong: {extra}")
+    cells = [result["value"], extra["p50_step_ms"],
+             extra["steps_per_sec_rmf10k"], extra["steps_per_sec_1000"],
+             extra["steps_per_sec_100000"],
+             extra["rmf10k_host_planning"]["host_plan_s_10k_agents"]] + [
+        extra[k]["ms_per_step"] for k in (
+            "multichip_shard_proxy", "multichip_shard_proxy_tolerance",
+            "multichip_shard_proxy_tolerance_d16")]
+    if not all(isinstance(v, float) and v > 0 for v in cells):
+        raise AssertionError(f"9a bench: a cell is not a positive number: "
+                             f"{cells}")
+    print(f"phase 9 bench: {json.dumps(result)}", flush=True)
+    print(f"phase 9a bench: {wall:.1f} s in all on '{card}'; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def _validate_phase(dev, card):
+    """9b: ``validate_highD`` at D = 16 on the card, both modes, and its
+    halo table."""
+    from rmf_crowdsim_tpu_torch.tools import validate_highD
+
+    validate_highD.halo_table()
+    t0 = time.perf_counter()
+    r = validate_highD.validate(16, dev)
+    print(f"phase 9b validate_highD: D = 16 on '{card}': bitwise D = 1 bit "
+          f"for bit over {r['agents']} agents, {r['migrations']} "
+          f"migrations; tolerance max abs diff {r['tolerance_max_diff']} "
+          f"(tol {validate_highD.TOL}), lifecycle counters equal, "
+          f"{r['resorted']} of {r['shard_steps']} shard-steps re-sorted; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1762,8 +1828,7 @@ def main() -> int:
     # (scene options, kernels that must launch, kernels that must not)
     paths = {
         "main grid_pallas": (
-            dict(backend="grid_pallas"),
-            ("pack_rows", "zanlungo_bucketed", "spill_window"),
+            dict(backend="grid_pallas"), MAIN_KERNELS,
             ("zanlungo_bucketed_spill", "zanlungo_dense")),
         "path A grid_dense": (
             dict(backend="grid_dense"), ("zanlungo_dense",),
@@ -1871,6 +1936,12 @@ def main() -> int:
 
     # ---- phase 8: the multi-device engines --------------------------------
     launches_w = _world_phase(torch, dev, card, kernels)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the bench and the high-D validation -------------------
+    launches_b = _bench_phase(kernels, card)
+    torch.cuda.empty_cache()
+    _validate_phase(dev, card)
 
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
@@ -1898,8 +1969,9 @@ def main() -> int:
             if "device_ms" in results[name] else {}),
          **({"launches_path_c": launches_c[name],
              "launches_path_d": launches_d[name],
-             "launches_world": launches_w[name]}
-            if name in paths["main grid_pallas"][1] else {})}
+             "launches_world": launches_w[name],
+             "launches_bench": launches_b[name]}
+            if name in MAIN_KERNELS else {})}
         for name in source
     ] + probe_rows}))
     print(f"card: {card}")

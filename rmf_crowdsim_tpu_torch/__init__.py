@@ -15,7 +15,10 @@ their first use, and the three multi-device engines (``parallel/``: the
 agent-sharded step, the domain-decomposed force pass and the
 world-sharded step with migration) over a mesh of shards: threads on one
 device (``make_thread_mesh``) or one process per card
-(``ProcessGroupComm``).  The package imports ``torch`` and never JAX.
+(``ProcessGroupComm``); and the entry points: the one-line bench
+(``python -m rmf_crowdsim_tpu_torch.bench``), the high-D validation tool
+(``tools/validate_highD.py``) and three examples (``examples/``).  The
+package imports ``torch`` and never JAX.
 """
 
 from .core.config import GridConfig, SimConfig

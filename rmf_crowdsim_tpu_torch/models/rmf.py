@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..native import make_route_planner
+from ..native import NativeRoutePlanner, make_route_planner
 from .highlevel import RouteTable, WaypointFollow
 
 
@@ -149,6 +149,13 @@ class RMFPlanner(WaypointFollow):
     @property
     def n_routes(self) -> int:
         return self._n_routes
+
+    @property
+    def route_backend(self) -> str:
+        """Which route planner plans: ``"native"`` (the C++ planner) or
+        ``"numpy"`` (the fallback, taken when it cannot be built)."""
+        return ("native" if isinstance(self._backend, NativeRoutePlanner)
+                else "numpy")
 
     def route(self, route_id: int) -> List[Tuple[float, float]]:
         n = int(self._lengths[route_id])

@@ -22,12 +22,15 @@ world, sinks on the right, agents crossing every region boundary.
 (``parallel/worldstep.py``), its state split by region over a
 ``ThreadMesh``; ``build_shard_proxy`` copies ``bench.py:162-260``'s world
 of one shard of a D-shard bench world at full width, on one shard.
+``build_rmf_hall`` is ``bench.py:299-390``'s walled hall with every agent
+routed by an ``RMFPlanner``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -413,6 +416,69 @@ def build_shard_proxy(d: int = 10, invariance: str = "bitwise",
                        lp=(lp.init_params(mesh.device),), sources=None)
     return (build_world_rollout(config, [hl], [lp], mesh), params, shards,
             mesh)
+
+
+RMF_HALL_GOAL = (190.0, 90.0)
+
+
+def build_rmf_hall(n_agents: int = 10_000, backend: str = "grid_pallas",
+                   device="cuda"):
+    """bench.py:299-390 ``time_rmf_routing``'s scene on ``device`` (the
+    card unless the caller names another device): a 200 x 100 m hall with
+    four inner walls at x = 40, 80, 120, 160, each with a 12 m door gap
+    from y = 40 + 5i; ``n_agents`` uniform in ``[2, 198] x [2, 98]``
+    (seed 0), every agent routed by an ``RMFPlanner`` (scale 2, radius
+    0.4, 8,192 routes of up to 64 waypoints, arrival tolerance 0.5) from
+    its own position to ``RMF_HALL_GOAL``; ``Zanlungo(1, 1, 0, 1, 2,
+    0.25, force_cap=10)``; bench.py's SimConfig (a 208 x 108 m grid,
+    tiles of 5.3 m with buckets of 32, 256 spill slots, truncation
+    counted, not raised).  bench.py steps it at dt 0.25.  The per-agent
+    planning runs here, on the host clock.  Returns (rollout, params,
+    state, planner, route ids [N] int64 with -1 for an agent without a
+    route, planning seconds)."""
+    verts = [(0.0, 0.0), (200.0, 0.0), (200.0, 100.0), (0.0, 100.0)]
+    walls = [(0, 1), (1, 2), (2, 3), (3, 0)]
+    for i, x in enumerate((40.0, 80.0, 120.0, 160.0)):
+        b = len(verts)
+        gap_lo = 40.0 + 5.0 * i
+        verts += [(x, 0.0), (x, gap_lo), (x, gap_lo + 12.0), (x, 100.0)]
+        walls += [(b, b + 1), (b + 2, b + 3)]
+    planner = RMFPlanner(verts, walls, scale=2.0, radius=0.4,
+                         max_routes=8192, max_route_len=64,
+                         arrival_tolerance=0.5)
+    lp = Zanlungo(1.0, 1.0, 0.0, 1.0, 2.0, 0.25, force_cap=10.0)
+    config = SimConfig(
+        capacity=n_agents,
+        grid=GridConfig(width=208.0, height=108.0, cell_size=2.0,
+                        offset=(-4.0, -4.0)),
+        neighbor_backend=backend,
+        max_per_cell=32,
+        max_eyesight=2.0,
+        bucket_capacity=32,
+        sub_tiles=2,
+        strip_tiles=96,
+        bucket_tile_size=5.3,
+        use_pack_kernel=(backend == "grid_pallas"),
+        spill_capacity=256,
+        on_truncation="ignore",
+        dtype="float32",
+    )
+    rng = np.random.default_rng(0)
+    pos = np.stack([rng.uniform(2.0, 198.0, n_agents),
+                    rng.uniform(2.0, 98.0, n_agents)], axis=-1)
+    t0 = time.perf_counter()
+    route_ids = np.asarray([
+        -1 if (rid := planner.plan_route_cached(
+            (float(p[0]), float(p[1])), RMF_HALL_GOAL)) is None else rid
+        for p in pos], np.int64)
+    plan_s = time.perf_counter() - t0
+    state = _crowd_state(config, n_agents, pos, device)
+    state = state.replace(route_id=torch.as_tensor(
+        route_ids, dtype=torch.int32).to(device))
+    params = SimParams(hl=(planner.init_params(device),),
+                       lp=(lp.init_params(device),), sources=None)
+    rollout = build_rollout(config, [planner], [lp])
+    return rollout, params, state, planner, route_ids, plan_s
 
 
 def crossing_scene(capacity: int = 128, dual_row: bool = False,

@@ -45,7 +45,7 @@ def _tensor_of(result):
         return result
     if isinstance(result, dict):
         return next(iter(result.values()))
-    if isinstance(result, tuple):          # build_bench: (rollout, params, state)
+    if isinstance(result, tuple):          # (rollout, params, state, ...)
         st = result[2]                     # build_world_bench: shards
         return (st[0] if isinstance(st, list) else st).position
     if isinstance(result, torch.device):   # a mesh's device
@@ -79,6 +79,7 @@ ENTRY_POINTS = {
     "init_world_skin": lambda: init_world_skin(_WORLD,
                                                make_thread_mesh(2))[0],
     "build_world_bench": lambda: scenes.build_world_bench(64, 2),
+    "build_rmf_hall": lambda: scenes.build_rmf_hall(64),
 }
 
 

@@ -11,7 +11,9 @@ the left edge, sinks on the right, agents crossing every region boundary.
 - Against the JAX package: the port's D = 4 rollout against JAX's
   ``build_world_rollout`` on a 4-device mesh (its kernels in interpret
   mode), 40 steps, the length of the JAX test: positions and velocities
-  by uid to 2e-4, the counters and the uid sets exactly.
+  by uid to 2e-4, the counters and the uid sets exactly; likewise with
+  the spill list on in bitwise mode, and in tolerance mode with and
+  without it, ``resorted`` included.
 """
 
 import functools
@@ -34,6 +36,8 @@ from tests.torch_multidevice import world_scene
 TOL = 2e-4
 LIFECYCLE = ("n_alive", "n_spawned", "n_destroyed", "n_waypoint_reached",
              "spawn_dropped")
+MIGRATION = LIFECYCLE + ("migrated", "migration_overflow", "arrival_dropped",
+                         "stray", "out_of_bounds")
 
 
 @pytest.fixture(autouse=True)
@@ -132,11 +136,24 @@ def test_world_step_threads_the_skin_carry():
     assert agents(shards) == agents(shards_r)
 
 
-def _jax_world(d, n_steps):
+def _jax_world(d, n_steps, **kw):
     from tests.test_worldstep import run_world as jax_run_world
 
-    a, c, _ = jax_run_world(d, n_steps=n_steps)
+    a, c, _ = jax_run_world(d, n_steps=n_steps, **kw)
     return a, jax.device_get(c)
+
+
+def _matches_jax(aj, cj, ap, cp, counters):
+    assert aj.keys() == ap.keys()
+    for k in aj:
+        np.testing.assert_allclose(np.asarray(aj[k][:4], np.float64),
+                                   ap[k][:4], rtol=TOL, atol=TOL,
+                                   err_msg=str(k))
+        assert int(aj[k][4]) == ap[k][4]
+    for name in counters:
+        np.testing.assert_array_equal(np.asarray(getattr(cj, name)),
+                                      getattr(cp, name).numpy(),
+                                      err_msg=name)
 
 
 def test_world_matches_jax_world_rollout():
@@ -145,14 +162,21 @@ def test_world_matches_jax_world_rollout():
     them."""
     aj, cj = _jax_world(4, 40)
     ap, cp = run_world(4)
-    assert aj.keys() == ap.keys()
-    for k in aj:
-        np.testing.assert_allclose(np.asarray(aj[k][:4], np.float64),
-                                   ap[k][:4], rtol=TOL, atol=TOL,
-                                   err_msg=str(k))
-        assert int(aj[k][4]) == ap[k][4]
-    for name in LIFECYCLE + ("migrated", "migration_overflow",
-                             "arrival_dropped", "stray", "out_of_bounds"):
-        np.testing.assert_array_equal(np.asarray(getattr(cj, name)),
-                                      getattr(cp, name).numpy(),
-                                      err_msg=name)
+    _matches_jax(aj, cj, ap, cp, MIGRATION)
+
+
+@pytest.mark.parametrize("invariance,tile,spill", [
+    ("bitwise", 0.0, 32), ("tolerance", 4.0, 0), ("tolerance", 4.0, 32)])
+def test_world_matches_jax_with_spills_and_tolerance(invariance, tile,
+                                                     spill):
+    """The same at D = 4 and 40 steps with the spill list on (bitwise)
+    and in tolerance mode (bucket tiles of 4 m) without and with it:
+    positions and velocities by uid to 2e-4, every counter exactly,
+    ``resorted`` included."""
+    kw = dict(invariance=invariance, tile=tile, capacity=256, spill=spill)
+    aj, cj = _jax_world(4, 40, **kw)
+    ap, cp = run_world(4, **kw)
+    assert len(ap) > 20 and int(cp.migrated.sum()) > 0
+    _matches_jax(aj, cj, ap, cp, MIGRATION + ("resorted",))
+    if invariance == "tolerance":
+        assert int(cp.resorted.sum()) < 4 * 40
