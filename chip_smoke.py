@@ -61,10 +61,19 @@ repository beside it).  Phases, each printing its own line:
    version on the card (K1's stage cuts bitwise on the 1M plane, ``full``
    also bitwise the main K1 and at K4's thread rule; the chained 0/1
    product bitwise in bf16, s8, tf32 and f32 at 1, 2 and 3 steps; the
-   transposes and the feature-plane writers bitwise), then the probes'
-   own timing runs with their launch counts set to 0 just before and read
-   just after, every probe kernel launched; the stage table and the
-   product and plane times, with the card's name and power limit;
+   two probe transposes, a [16, 48] -> [40, 16] one and the feature-plane
+   writers at both plane sizes and at 3,000 and 1,001 slots, bitwise),
+   then the probes' own timing runs with their launch counts set to 0
+   just before and read just after, every probe kernel launched: the
+   launch floor first (``probes/launch.py``: the empty kernel
+   ``csrc/noop.cu`` through ``cuda_build.launch``, host µs a call over
+   10,000 calls beside the launch path before its entry points were bound
+   and ``torch.empty(0)``, in turns; its device time), then the stage
+   table, the product times, and the transposes (a call, in turns with
+   ``src[:r, :c].t().contiguous()``, and on the device beside that call's
+   copy) and plane writers (a call and on the device, each beside its
+   byte bound; ``columns x4`` also beside its 32-byte sectors), with the
+   card's name and power limit;
 7. the ``Simulation`` session (``core/simulation.py``), built through its
    public API by ``scenes.build_session``: the streaming scene's crowd by
    ``add_agents`` and its SourceSinks by ``add_source_sink``, their route
@@ -125,9 +134,13 @@ Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
 and for the probe kernels without one; K1, K2 and K3 also carry their
 launches on path C, path D, the bitwise 1M world of 8c and the bench of
-9a; each probe row also has its ``share`` of its bound), the card's
-line, and as the last line ``{"ok": true, "device": {...}}``.  Any
-failure raises.
+9a; each probe row also has its ``share`` of its bound, the P4 rows
+their ``device_ms`` and ``device_share``, and the ``noop`` row the
+launch floor's host µs a call; the empty kernel has no output and no
+plain version, so its ``max_abs_err``, ``plain_ms``, ``bound_by`` and
+``share`` are null and its ``bound_ms`` is 0), the card's line, and as
+the last line
+``{"ok": true, "device": {...}}``.  Any failure raises.
 """
 
 from __future__ import annotations
@@ -167,40 +180,6 @@ WORLD_WARM = 2
 MAIN_KERNELS = ("pack_rows", "zanlungo_bucketed", "spill_window")
 WORLD_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
                   "n_waypoint_reached", "spawn_dropped", "out_of_bounds")
-
-
-def _device_ms(torch, fn, reps: int, kernel: str) -> float:
-    """Mean device time per call of ``fn`` spent in the kernels whose name
-    holds ``kernel``, over ``reps`` calls under ``torch.profiler`` (after
-    one warm-up call): the kernel's own time where its launch is shorter
-    than the host time of the call that makes it."""
-    from rmf_crowdsim_tpu_torch.utils.profile_step import device_kernels
-
-    fn()
-    torch.cuda.synchronize()
-
-    def run():
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-
-    top = device_kernels(run, reps, top=1 << 30)["top"]
-    ms = sum(ms for ms, _, name in top if kernel in name)
-    if ms <= 0.0:
-        raise AssertionError(f"no device time of {kernel} in the profile")
-    return ms
-
-
-def _timed_pair(torch, kernel, plain, reps: int):
-    """(kernel ms, plain ms), measured in turns kernel, plain, plain,
-    kernel and averaged (CUDA events over ``reps`` back-to-back calls)."""
-    from rmf_crowdsim_tpu_torch.utils.profile_step import cuda_ms
-
-    k1 = cuda_ms(kernel, reps)
-    p1 = cuda_ms(plain, reps)
-    p2 = cuda_ms(plain, reps)
-    k2 = cuda_ms(kernel, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def _dense_inputs(torch, dcfg, params, st):
@@ -544,6 +523,7 @@ def _probes(torch, dev, card, rl) -> list:
     from rmf_crowdsim_tpu_torch.ops import pack
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
     from rmf_crowdsim_tpu_torch.probes import k1_stages, mma_chain, planes
+    from rmf_crowdsim_tpu_torch.probes import launch as launch_probe
     from rmf_crowdsim_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
@@ -577,9 +557,11 @@ def _probes(torch, dev, card, rl) -> list:
                 "mma_chain": mma_chain.mma_chain,
                 "transpose": planes.transpose,
                 "write_columns": planes.write_columns,
-                "rebuild": planes.rebuild, "write_rows": planes.write_rows}
+                "rebuild": planes.rebuild, "write_rows": planes.write_rows,
+                "noop": launch_probe.noop}
     for fn in wrappers.values():
         fn.launches = 0
+    floor = launch_probe.measure(dev)
     k1_rows = k1_stages.measure(cfg, zp5, packed_t, packed_T)
     mma_rows = mma_chain.measure(dev)
     plane_rows = planes.measure(dev)
@@ -587,17 +569,6 @@ def _probes(torch, dev, card, rl) -> list:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the probes never launched {missing}")
-    # A transpose's launch is shorter than its wrapper's host time: its
-    # device time from the profiler, as K2's.
-    src = torch.rand((8, 128), device=dev)
-    t_dev = {f"transpose [{r},{c}]": _device_ms(
-        torch, lambda: planes.transpose(src[:r], c), 20, "transpose_kernel")
-        for r, c in planes.TRANSPOSES}
-    # The library call's own device time on the same block: every kernel
-    # its run launches (one copy).
-    t_lib_dev = {f"transpose [{r},{c}]": _device_ms(
-        torch, lambda: src[:r, :c].t().contiguous(), 20, "")
-        for r, c in planes.TRANSPOSES}
     print(k1_stages.stage_table(k1_rows, card))
     print(f"phase 6 P3 chained 0/1 products on '{card}', "
           f"{mma_chain.ITERS} steps a call:")
@@ -606,16 +577,31 @@ def _probes(torch, dev, card, rl) -> list:
         print(f"  {shape:10s} {dtype:4s}: {1e6 * ms:.1f} ns/product, bound "
               f"{1e6 * bms:.3f} ns at the {dtype} peak; plain "
               f"{1e6 * pms:.1f} ns; one torch link {lib_text}")
-    print(f"phase 6 P4 transposes and plane writers on '{card}':")
-    for name, size, ms, pms, lib, b, *_ in plane_rows:
+    print(f"phase 6 P4 transposes and plane writers on '{card}' (a call on "
+          f"CUDA events; on the device from the profiler):")
+    for name, size, ms, pms, lib, b, _, _, extra in plane_rows:
         lib_text = "none" if lib is None else f"{lib:.4f} ms"
-        dev_text = ""
-        if name in t_dev:
-            dev_text = f" ({t_dev[name]:.4f} ms on the device)"
-            lib_text += f" ({t_lib_dev[name]:.4f} ms on the device)"
-        print(f"  {name:18s} {size:18s}: {ms:.4f} ms{dev_text}, bound "
+        if "library_device_ms" in extra:
+            lib_text += f" ({extra['library_device_ms']:.5f} ms on the device)"
+        sec = "" if "sector_share" not in extra else (
+            f", {100 * extra['sector_share']:.1f}% of its sector bound "
+            f"{extra['sector_bound_ms']:.6f} ms")
+        print(f"  {name:18s} {size:18s}: {ms:.4f} ms a call "
+              f"({extra['device_ms']:.5f} ms on the device), bound "
               f"{b.ms:.6f} ms ({b.bytes} B), {100 * b.ms / ms:.1f}% of "
-              f"bound; plain {pms:.4f} ms; one torch call {lib_text}")
+              f"bound ({100 * b.ms / extra['device_ms']:.1f}% on the "
+              f"device){sec}; plain {pms:.4f} ms; one torch call {lib_text}")
+    print(f"phase 6 launch floor on '{card}', {launch_probe.CALLS} calls a "
+          f"turn, turns launcher, unbound, empty, empty, unbound, launcher: "
+          f"host {floor['host_us_launcher']:.3f} us a call through "
+          f"cuda_build.launch ({floor['event_us_launcher']:.3f} us on CUDA "
+          f"events), {floor['host_us_unbound']:.3f} us through the unbound "
+          f"path ({floor['event_us_unbound']:.3f}), "
+          f"{floor['host_us_torch_empty']:.3f} us for torch.empty(0) "
+          f"({floor['event_us_torch_empty']:.3f}); the empty kernel "
+          f"{floor['ms']:.5f} ms a call (CUDA events), "
+          f"{floor['device_ms']:.5f} ms on the device (profiler)",
+          flush=True)
     print(f"phase 6 probes: launches {launches}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -624,7 +610,8 @@ def _probes(torch, dev, card, rl) -> list:
                 "source": f"rmf_crowdsim_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lib, "share": bms / ms, **extra}
+                "library_ms": lib,
+                "share": None if by is None else bms / ms, **extra}
 
     rows = []
     off = {(s, t): (ms, n, err)
@@ -645,15 +632,22 @@ def _probes(torch, dev, card, rl) -> list:
                         b.bound_by, lib, per="product"))
     replaces = {"transpose [8,128]": "perf/transpose_probe.py:59",
                 "transpose [8,64]": "perf/transpose_probe.py:73"}
-    for name, size, ms, pms, lib, b, n, err in plane_rows:
+    for name, size, ms, pms, lib, b, n, err, extra in plane_rows:
         rows.append(row(f"{name} {size}".replace(" ", "_"), "plane_probe.cu",
                         replaces.get(name, "perf/transpose_probe.py:83"),
                         n, err, ms, pms, b.ms, b.bound_by, lib,
-                        **({"device_ms": t_dev[name],
-                            "library_device_ms": t_lib_dev[name]}
-                           if name in t_dev else {})))
+                        device_share=b.ms / extra["device_ms"], **extra))
+    # The empty kernel moves no byte and does no operation (bound 0 ms);
+    # it has no output and no plain version, so nothing was compared or
+    # timed beside it: error, plain time, bound type and share are null.
+    rows.append(row("noop", "noop.cu", "none: the launch floor of every "
+                    "csrc/ kernel", floor["launches"], None, floor["ms"],
+                    None, 0.0, None, None, device_ms=floor["device_ms"],
+                    **{k: v for k, v in floor.items()
+                       if k.startswith(("host_us", "event_us"))}))
     # P3 and P4 are bitwise at the timed sizes too (P3 at 4,000 steps).
-    bad = [r["name"] for r in rows if r["max_abs_err"] != 0.0
+    bad = [r["name"] for r in rows if r["max_abs_err"] is not None
+           and r["max_abs_err"] != 0.0
            and not r["name"].startswith("k1_stage")]
     if bad:
         raise AssertionError(f"timed probe outputs differ from their plain "
@@ -1432,7 +1426,8 @@ def main() -> int:
     from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
     from rmf_crowdsim_tpu_torch.utils import cuda_build
     from rmf_crowdsim_tpu_torch.utils import roofline as rl
-    from rmf_crowdsim_tpu_torch.utils.profile_step import card_line, cuda_ms
+    from rmf_crowdsim_tpu_torch.utils.profile_step import (
+        card_line, cuda_ms, cuda_ms_in_turns, kernel_device_ms)
 
     def bound_text(b, ms):
         return (f"bound {b.ms:.4f} ms ({b.bound_by}: {b.bytes} B, {b.ops} "
@@ -1464,8 +1459,8 @@ def main() -> int:
     if not (torch.equal(packed_t, plain_t) and torch.equal(packed_T, plain_T)):
         raise AssertionError(f"K3 pack differs from its plain version "
                              f"(max abs err {err3})")
-    ms, pms = _timed_pair(
-        torch, lambda: pack.pack_rows(feat_t, bpos, bcfg.slots),
+    ms, pms = cuda_ms_in_turns(
+        lambda: pack.pack_rows(feat_t, bpos, bcfg.slots),
         lambda: pack.pack_rows_plain(feat_t, bpos, bcfg.slots), 10)
     b3 = rl.Bound(rl.k3_bytes(N_MAIN, bcfg.slots))
     results["pack_rows"] = dict(err=err3, ms=ms, plain_ms=pms, bound=b3)
@@ -1489,8 +1484,8 @@ def main() -> int:
                                    atol=TOL)
         e = (out_k[live] - out_p[live]).abs().max().item()
         err1 = max(err1, e)
-        ms, pms = _timed_pair(
-            torch, lambda: zb.zanlungo_forces_bucketed(
+        ms, pms = cuda_ms_in_turns(
+            lambda: zb.zanlungo_forces_bucketed(
                 bcfg, zp5, packed_t, packed_T, int_prio=int_prio),
             lambda: zb.forces_bucketed_plain(bcfg, zp5, packed_t,
                                              packed_T, int_prio), 3)
@@ -1524,11 +1519,11 @@ def main() -> int:
             spill.spill_window(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
                                sp_tcy, vel_k, int_prio=int_prio)
 
-        ms, pms = _timed_pair(
-            torch, k2, lambda: spill.spill_window_plain(
+        ms, pms = cuda_ms_in_turns(
+            k2, lambda: spill.spill_window_plain(
                 bcfg, zp5, packed_t, packed_T, rows, sp_tcx, sp_tcy, vel_p,
                 int_prio), 10)
-        dev_ms = _device_ms(torch, k2, 20, "spill_window_kernel")
+        dev_ms = kernel_device_ms(k2, 20, "spill_window_kernel")
         b2 = rl.Bound(rl.k2_bytes(bcfg, zp5, packed_t, rows, sp_tcx, sp_tcy,
                                   vel_k),
                       rl.k2_work(bcfg, zp5, packed_t, packed_T, rows, sp_tcx,
@@ -1576,8 +1571,8 @@ def main() -> int:
         n_over = int(over.item())
         e = (out_k[live] - out_p[live]).abs().max().item()
         err1b = max(err1b, e)
-        ms, pms = _timed_pair(
-            torch, lambda: zb.zanlungo_forces_bucketed_spill(
+        ms, pms = cuda_ms_in_turns(
+            lambda: zb.zanlungo_forces_bucketed_spill(
                 bcfg, zp5, packed_t, packed_T, sflag, sp_fT,
                 int_prio=int_prio),
             lambda: zb.forces_bucketed_spill_plain(
@@ -1705,8 +1700,8 @@ def main() -> int:
                                    atol=TOL)
         e = (out_k[rows] - out_p[rows]).abs().max().item()
         err4 = max(err4, e)
-        ms, pms = _timed_pair(
-            torch, lambda: zd.zanlungo_forces_dense(
+        ms, pms = cuda_ms_in_turns(
+            lambda: zd.zanlungo_forces_dense(
                 dcfg, zp5, feat, tile_start, int_prio=int_prio),
             lambda: zd.forces_dense_plain(dcfg, zp5, feat, tile_start,
                                           int_prio), 3)

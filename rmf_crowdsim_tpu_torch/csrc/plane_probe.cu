@@ -20,11 +20,36 @@
 // One rounding each (a multiply), so kernel and plain version agree bit
 // for bit.
 //
-// Bound: bytes.  Each writer reads its K vectors once and writes its K
-// (rebuild: 16) floats a slot once; a thread takes one slot, reads its
-// vectors' floats (coalesced across the warp) and writes the row's floats
-// as 16-byte stores.  The transposes move 4-8 KB: one launch's latency.
+// The transposes move 4-8 KB: one launch's latency bounds them.  The two
+// probe shapes take a kernel templated on R and C: one thread an element
+// (1,024 or 512 threads), indices known at compile time (shifts, not
+// runtime divisions), coalesced reads into the [R][C + 1] tile and one
+// coalesced store a thread.  Every other shape takes the runtime-shape
+// kernel (two strided loops over the block).
+//
+// The writers are byte-bound streams.  Each lane of a warp takes 4
+// consecutive slots of a 128-slot chunk and reads each vector as one
+// float4; a warp takes 8 / K chunks, so a lane has 8 float4 loads (128 B)
+// in flight before its first store (at K = 4 one chunk's 64 B a lane
+// left the rows writer well short of HBM rate on the H100); one warp a
+// group of chunks, and a grid that covers them all (it streamed faster
+// than a grid of the resident blocks striding over the chunks).  The
+// rows writer stores float4s straight into t's contiguous rows.  The plane writers stage a chunk's
+// 128 slots x K values in shared memory ([K][132] floats a warp: 132 = 4
+// mod 32, so each store pattern below reads 32 banks) and store whole
+// rows' spans: with W float4s to a row (columns x8: 2, rebuild: 4),
+// 32 / W rows an instruction, so one warp store covers whole 32-byte
+// sectors (columns x8) or 512 contiguous bytes (rebuild).
+// columns x4 writes 16 B of each 64-B row, half a 32-B sector: its
+// counted bytes are 16 B read and 16 B written a slot (32 B), but its
+// stores touch one whole sector a slot, so the traffic the layout forces
+// is 16 B read + 32 B written = 48 B a slot (utils/roofline.py
+// plane_sector_bytes; more if the memory reads the sector to merge the
+// half it keeps).  Shapes with slots % 4 != 0 or a pointer off 16 bytes
+// take the per-slot kernel (scalar loads and stores, one slot a thread).
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace crowdsim {
 namespace {
@@ -32,6 +57,8 @@ namespace {
 constexpr int PLANE_THREADS = 256;
 constexpr int PLANE_F = 16;
 constexpr float PROBE_SCALE = 1.0000001f;
+constexpr int WARP_SLOTS = 128;        // 4 consecutive slots a lane
+constexpr int STAGE_LD = WARP_SLOTS + 4;
 
 __global__ void transpose_kernel(const float* __restrict__ x,
                                  float* __restrict__ y, int R, int C,
@@ -50,43 +77,128 @@ __global__ void transpose_kernel(const float* __restrict__ x,
   }
 }
 
+// One thread an element of the R x C block (R * C threads).
+template <int R, int C>
+__global__ void __launch_bounds__(R * C)
+    transpose_fixed_kernel(const float* __restrict__ x,
+                           float* __restrict__ y, int ld) {
+  __shared__ float tile[R][C + 1];
+  const unsigned i = threadIdx.x;
+  tile[i / C][i % C] = x[(i / C) * ld + i % C];
+  __syncthreads();
+  y[i] = tile[i % R][i / R];
+}
+
 struct Cols {
   const float* c[8];
 };
 
-// mode 0: K columns of the plane; 1: the rebuild; 2: K rows of t.
+// mode 0: K columns of the plane; 1: the rebuild; 2: K rows of t.  Any
+// slot count and alignment.
 template <int MODE, int K>
 __global__ void __launch_bounds__(PLANE_THREADS)
     plane_kernel(float* __restrict__ dst, Cols cols, int slots) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= slots) return;
-  float v[K];
 #pragma unroll
-  for (int j = 0; j < K; ++j) v[j] = cols.c[j][i] * PROBE_SCALE;
-  if constexpr (MODE == 2) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) dst[(long long)j * slots + i] = v[j];
-  } else {
-    float4* row = reinterpret_cast<float4*>(dst + (long long)i * PLANE_F);
-#pragma unroll
-    for (int q = 0; q < K / 4; ++q)
-      row[q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                           v[4 * q + 3]);
-    if constexpr (MODE == 1) {
-#pragma unroll
-      for (int q = 0; q < K / 4; ++q)
-        row[K / 4 + q] = make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2],
-                                     v[4 * q + 3]);
+  for (int j = 0; j < K; ++j) {
+    const float v = cols.c[j][i] * PROBE_SCALE;
+    if constexpr (MODE == 2) {
+      dst[(long long)j * slots + i] = v;
+    } else {
+      dst[(long long)i * PLANE_F + j] = v;
+      if constexpr (MODE == 1) dst[(long long)i * PLANE_F + K + j] = v;
     }
   }
+}
+
+__device__ __forceinline__ float4 scaled(float4 v) {
+  return make_float4(v.x * PROBE_SCALE, v.y * PROBE_SCALE,
+                     v.z * PROBE_SCALE, v.w * PROBE_SCALE);
+}
+
+// The same contracts for slots % 4 == 0 and 16-byte aligned pointers.
+// A warp takes U = 8 / K chunks of 128 slots (4 consecutive slots a lane
+// a chunk), so that each lane has 8 float4 loads in flight before its
+// first store; one warp a group of chunks, the grid covering them all.
+template <int MODE, int K>
+__global__ void __launch_bounds__(PLANE_THREADS)
+    plane_vec_kernel(float* __restrict__ dst, Cols cols, int slots) {
+  constexpr int WARPS = PLANE_THREADS / 32;
+  constexpr int U = 8 / K;
+  constexpr int SK = MODE == 2 ? 1 : K;  // the rows writer stages nothing
+  // float4s a row and rows a warp store instruction.
+  constexpr int W = MODE == 1 ? 4 : K / 4;
+  constexpr int ROWS = 32 / W;
+  __shared__ __align__(16) float stage[WARPS][SK][STAGE_LD];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long g0 =
+      ((long long)blockIdx.x * WARPS + warp) * U * WARP_SLOTS;
+  if (g0 >= slots) return;
+  float4 v[U][K];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long s = g0 + u * WARP_SLOTS + 4 * lane;
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      v[u][j] = s < slots
+                    ? scaled(*reinterpret_cast<const float4*>(cols.c[j] + s))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long s0 = g0 + u * WARP_SLOTS;
+    const long long s = s0 + 4 * lane;
+    if constexpr (MODE == 2) {
+      if (s < slots) {
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          *reinterpret_cast<float4*>(dst + (long long)j * slots + s) =
+              v[u][j];
+      }
+    } else {
+      __syncwarp();  // the previous chunk's stores have read the stage
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        *reinterpret_cast<float4*>(&stage[warp][j][4 * lane]) = v[u][j];
+      __syncwarp();
+      const int f = lane % W;            // which float4 of the row
+      const int j0 = 4 * (f % (K / 4));  // its first value
+#pragma unroll
+      for (int q = 0; q < WARP_SLOTS / ROWS; ++q) {
+        const int r = q * ROWS + lane / W;
+        if (s0 + r < slots) {
+          const float4 o =
+              make_float4(stage[warp][j0][r], stage[warp][j0 + 1][r],
+                          stage[warp][j0 + 2][r], stage[warp][j0 + 3][r]);
+          *reinterpret_cast<float4*>(dst + (s0 + r) * PLANE_F + 4 * f) = o;
+        }
+      }
+    }
+  }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <int MODE, int K>
 cudaError_t launch_plane(float* dst, const Cols& cols, int slots,
                          cudaStream_t stream) {
-  const int blocks = (slots + PLANE_THREADS - 1) / PLANE_THREADS;
-  plane_kernel<MODE, K><<<blocks, PLANE_THREADS, 0, stream>>>(dst, cols,
-                                                              slots);
+  bool vec = slots % 4 == 0 && aligned16(dst);
+  for (int j = 0; j < K; ++j) vec = vec && aligned16(cols.c[j]);
+  if (!vec) {
+    const int blocks = (slots + PLANE_THREADS - 1) / PLANE_THREADS;
+    plane_kernel<MODE, K><<<blocks, PLANE_THREADS, 0, stream>>>(dst, cols,
+                                                                slots);
+    return cudaGetLastError();
+  }
+  const long long block_slots =
+      (long long)PLANE_THREADS / 32 * (8 / K) * WARP_SLOTS;
+  const int blocks = (int)((slots + block_slots - 1) / block_slots);
+  plane_vec_kernel<MODE, K><<<blocks, PLANE_THREADS, 0, stream>>>(dst, cols,
+                                                                  slots);
   return cudaGetLastError();
 }
 
@@ -96,11 +208,16 @@ cudaError_t launch_plane(float* dst, const Cols& cols, int slots,
 extern "C" int crowdsim_transpose(const float* x, float* y, int R, int C,
                                   int ld, void* stream) {
   using namespace crowdsim;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * R * (C + 1);
   if (R < 1 || C < 1 || C > ld || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  transpose_kernel<<<1, PLANE_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(x, y, R, C, ld);
+  if (R == 8 && C == 128)
+    transpose_fixed_kernel<8, 128><<<1, 8 * 128, 0, s>>>(x, y, ld);
+  else if (R == 8 && C == 64)
+    transpose_fixed_kernel<8, 64><<<1, 8 * 64, 0, s>>>(x, y, ld);
+  else
+    transpose_kernel<<<1, PLANE_THREADS, smem, s>>>(x, y, R, C, ld);
   return (int)cudaGetLastError();
 }
 

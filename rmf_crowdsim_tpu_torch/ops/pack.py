@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import cuda_build
 from .zanlungo_bucketed import NUM_CAND, NUM_F, sentinel_rows
 
 
@@ -62,8 +63,6 @@ def pack_rows(feat_t: torch.Tensor, bpos_sorted: torch.Tensor, slots: int):
     if feat_t.device.type == "cpu":
         packed_t, packed_T = pack_rows_plain(feat_t, bpos_sorted, slots)
         return packed_t, packed_T, overflow
-    from ..utils import cuda_build
-
     assert slots < (1 << 24), "slot ids must be exact in f32"
     cuda_build.check_tensors(
         "pack_rows",

@@ -29,6 +29,7 @@ import types
 import torch
 
 from ..models.local import zanlungo_from_rows
+from ..utils import cuda_build
 from .compact import compact_indices
 from .zanlungo_bucketed import (
     NUM_CAND, NUM_F, ROW_EYE, ROW_FX, ROW_FY, ROW_ID, ROW_PRIO, ROW_PX,
@@ -269,8 +270,6 @@ def spill_window(cfg: BucketConfig, zp5: torch.Tensor, packed_t, packed_T,
     if packed_t.device.type == "cpu":
         return spill_window_plain(cfg, zp5, packed_t, packed_T, rows,
                                   sp_tcx, sp_tcy, vel, int_prio, windows)
-    from ..utils import cuda_build
-
     s_cap = rows.shape[0]
     if vel.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"spill_window: vel must be float32 or float64, "

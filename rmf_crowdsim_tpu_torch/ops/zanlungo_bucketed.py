@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import cuda_build
+
 # Feature rows of the packed plane (zanlungo_pallas.py:74-87).  Rows
 # [0, NUM_CAND) are the candidate-side features.
 ROW_PX, ROW_PY = 0, 1
@@ -618,8 +620,6 @@ def zanlungo_forces_bucketed(cfg: BucketConfig, zp5: torch.Tensor,
     either way)."""
     if packed_t.device.type == "cpu":
         return forces_bucketed_plain(cfg, zp5, packed_t, packed_T, int_prio)
-    from ..utils import cuda_build
-
     cuda_build.check_tensors(
         "zanlungo_forces_bucketed",
         zp5=(zp5, torch.float32, (5,)),
@@ -697,8 +697,6 @@ def zanlungo_forces_bucketed_spill(cfg: BucketConfig, zp5: torch.Tensor,
     if packed_t.device.type == "cpu":
         return forces_bucketed_spill_plain(cfg, zp5, packed_t, packed_T,
                                            sflag, sp_T, int_prio)
-    from ..utils import cuda_build
-
     n_blocks = cfg.tx * (cfg.ty // cfg.sub_tiles)
     n_sp = sp_T.shape[1]
     cuda_build.check_tensors(

@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils import cuda_build
 from .zanlungo_bucketed import (
     NUM_CAND, NUM_F, POS_SENTINEL, ROW_ID, SMEM_LIMIT, _align16,
     candidate_features, pair_mask, pair_velocities, query_features, zparams5,
@@ -298,8 +299,6 @@ def zanlungo_forces_dense(cfg: DenseConfig, zp5: torch.Tensor,
     measurement aid; the result is exact either way)."""
     if feat.device.type == "cpu":
         return forces_dense_plain(cfg, zp5, feat, tile_start, int_prio)
-    from ..utils import cuda_build
-
     counters = {}
     if overflow is not None:
         counters = dict(overflow=(overflow, torch.int32, (2,)))

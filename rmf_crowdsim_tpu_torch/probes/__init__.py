@@ -7,6 +7,10 @@ probes, each a hand-written CUDA kernel beside its plain version.
   matrix product on the tensor cores (bf16, s8, tf32) and off them (FFMA).
 - :mod:`.planes` (P4; ``perf/transpose_probe.py``): shared-memory
   transposes and the writers of the ``[slots, 16]`` feature plane.
+- :mod:`.launch`: the launch floor of the ``csrc/`` kernels, an empty
+  kernel's device time and the host time of a launch.
+- :mod:`.k2_compare`: K2's call time against its device time, this
+  checkout's port beside another checkout's, in turns.
 
 Each runs on the card from the command line (``python -m
 rmf_crowdsim_tpu_torch.probes.<name>``) and raises without one; no code

@@ -36,6 +36,7 @@ import torch
 
 from ..ops import zanlungo_bucketed as zb
 from ..ops import zanlungo_dense as zd
+from ..utils import cuda_build
 from ..utils import roofline as rl
 from . import max_abs_err, require_card, timed
 
@@ -110,8 +111,6 @@ def k1_stage(cfg: zb.BucketConfig, zp5: torch.Tensor, packed_t: torch.Tensor,
                          f"{stage!r}")
     if packed_t.device.type == "cpu":
         return k1_stage_plain(cfg, zp5, packed_t, packed_T, stage, int_prio)
-    from ..utils import cuda_build
-
     cuda_build.check_tensors(
         "k1_stage",
         zp5=(zp5, torch.float32, (5,)),

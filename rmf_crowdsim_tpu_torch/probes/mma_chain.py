@@ -24,6 +24,7 @@ import argparse
 import numpy as np
 import torch
 
+from ..utils import cuda_build
 from ..utils import roofline as rl
 from ..utils.profile_step import cuda_ms
 from . import max_abs_err, require_card, timed
@@ -99,8 +100,6 @@ def mma_chain(x: torch.Tensor, w: torch.Tensor, iters: int, dtype: str):
         if x.dtype != torch.float32 or w.dtype != torch.float32:
             raise ValueError("mma_chain: x and w must be float32")
         return mma_chain_plain(x, w, iters)
-    from ..utils import cuda_build
-
     cuda_build.check_tensors("mma_chain", x=(x, torch.float32, (m, k)),
                              w=(w, torch.float32, (k, n)))
     if dtype == "f32" and (256 % n or m > 256 // n * 32):

@@ -13,8 +13,13 @@ stack (``probe_column_updates``: ``upd8``, ``upd4``, ``rebuild``,
 1,835,520 slots (the TPU probe's) and at the dense path's 2,019,072
 padded rows, whose ``[N, 16]`` stack ``dense_prep`` writes every step.
 Printed for each: the CUDA-event time, its bound
-(``utils/roofline.plane_bytes``), the plain version's time and, where one
-``torch`` call does the same, that call's.  Every kernel is first held
+(``utils/roofline.plane_bytes``; for ``columns x4`` also against the
+32-byte sectors its layout forces, ``plane_sector_bytes``), the plain
+version's time and, where one ``torch`` call does the same, that call's.
+A transpose's call is host time, so the transposes are timed in
+``TRANSPOSE_ROUNDS`` rounds of turns (kernel, library call, library call,
+kernel), ``TRANSPOSE_REPS`` calls a turn.  Each time a call is printed
+beside the kernel's device time (profiler).  Every kernel is first held
 bitwise against its plain version.  Needs a CUDA device; raises without
 one.
 """
@@ -22,26 +27,39 @@ one.
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
 
+from ..utils import cuda_build
 from ..utils import roofline as rl
-from ..utils.profile_step import cuda_ms
+from ..utils.profile_step import (cuda_ms, cuda_ms_in_turns,
+                                  kernel_device_ms)
 from . import max_abs_err, require_card, timed
 
 SCALE = 1.0000001
 PLANE_F = 16
 SLOTS = {"bucketed": 1_835_520, "dense": 2_019_072}
 TRANSPOSES = ((8, 128), (8, 64))   # (rows, columns) of the source block
-REPS = 20                          # timed calls a row
+# Checked, not timed: another transpose shape (the runtime-shape kernel),
+# a slot count that ends in a part of a 128-slot chunk (the float4
+# writers' ragged edge) and one that is no multiple of 4 (the per-slot
+# writers).
+OTHER_TRANSPOSE = (16, 48, 40)     # rows, ld, columns
+OTHER_SLOTS = (3000, 1001)
+REPS = 20                          # timed calls a writer row
+TRANSPOSE_REPS = 250               # timed calls a transpose turn
+TRANSPOSE_ROUNDS = 4               # rounds of turns kernel, library,
+                                   # library, kernel
 
 
 def _vectors(cols, k: int, slots: int, caller: str):
     if len(cols) != k:
         raise ValueError(f"{caller}: {k} vectors needed, got {len(cols)}")
+    shape = (slots,)
     for c in cols:
-        if c.dim() != 1 or c.shape[0] != slots or c.dtype != torch.float32:
+        if c.shape != shape or c.dtype != torch.float32:
             raise ValueError(f"{caller}: each vector must be [{slots}] "
                              f"float32, got {tuple(c.shape)} {c.dtype}")
 
@@ -58,19 +76,20 @@ def transpose(x: torch.Tensor, cols: int) -> torch.Tensor:
     """The first ``cols`` columns of ``x`` [R, ld] f32, transposed: [cols,
     R].  CPU tensors take the plain version; CUDA tensors launch
     ``csrc/plane_probe.cu`` (one block, through shared memory)."""
-    if x.dim() != 2 or x.dtype != torch.float32 or not (
-            1 <= cols <= x.shape[1]) or x.shape[0] * (cols + 1) > 12288:
+    shape = x.shape
+    if len(shape) != 2 or x.dtype != torch.float32 or not (
+            1 <= cols <= shape[1]) or shape[0] * (cols + 1) > 12288:
         raise ValueError(f"transpose: x [R, ld] float32 with 1 <= cols <= "
                          f"ld and R (cols + 1) <= 12288 needed, got "
-                         f"{tuple(x.shape)} {x.dtype}, cols {cols}")
-    if x.device.type == "cpu":
+                         f"{tuple(shape)} {x.dtype}, cols {cols}")
+    if x.is_cpu:
         return transpose_plain(x, cols)
-    from ..utils import cuda_build
-
-    rows, ld = x.shape
-    cuda_build.check_tensors("transpose", x=(x, torch.float32, (rows, ld)))
-    y = torch.empty((cols, rows), dtype=torch.float32, device=x.device)
-    cuda_build.launch("crowdsim_transpose", x, y, rows, cols, ld)
+    if not (x.is_cuda and x.is_contiguous()):
+        # dtype and shape hold already: this raises with check_tensors'
+        # message for the layout or the device.
+        cuda_build.check_tensors("transpose", x=(x, torch.float32, shape))
+    y = x.new_empty((cols, shape[0]))
+    cuda_build.launch("crowdsim_transpose", x, y, shape[0], cols, shape[1])
     transpose.launches += 1
     return y
 
@@ -78,15 +97,16 @@ def transpose(x: torch.Tensor, cols: int) -> torch.Tensor:
 transpose.launches = 0
 
 
-def _launch_writer(dst, cols, mode: int):
-    from ..utils import cuda_build
+_COLS = tuple(f"c{j}" for j in range(8))
 
-    cuda_build.check_tensors(
-        "plane writer", dst=(dst, torch.float32, tuple(dst.shape)),
-        **{f"c{j}": (c, torch.float32, tuple(c.shape))
-           for j, c in enumerate(cols)})
-    ptrs = list(cols) + [None] * (8 - len(cols))
-    cuda_build.launch("crowdsim_plane_write", dst, *ptrs, cols[0].shape[0],
+
+def _launch_writer(dst, cols, mode: int):
+    specs = {"dst": (dst, torch.float32, dst.shape)}
+    for name, c in zip(_COLS, cols):
+        specs[name] = (c, torch.float32, c.shape)
+    cuda_build.check_tensors("plane writer", **specs)
+    cuda_build.launch("crowdsim_plane_write", dst, *cols,
+                      *(None,) * (8 - len(cols)), cols[0].shape[0],
                       len(cols), mode)
 
 
@@ -116,11 +136,12 @@ def write_columns(plane: torch.Tensor, cols) -> torch.Tensor:
     place, on a row-major ``[slots, 16]`` f32 plane (the TPU probe's
     ``upd8``/``upd4``).  Returns ``plane``."""
     k = len(cols)
-    if k not in (4, 8) or plane.dim() != 2 or plane.shape[1] != PLANE_F:
+    shape = plane.shape
+    if k not in (4, 8) or len(shape) != 2 or shape[1] != PLANE_F:
         raise ValueError(f"write_columns: 4 or 8 vectors and a [slots, 16] "
-                         f"plane needed, got {k} and {tuple(plane.shape)}")
-    _vectors(cols, k, plane.shape[0], "write_columns")
-    if plane.device.type == "cpu":
+                         f"plane needed, got {k} and {tuple(shape)}")
+    _vectors(cols, k, shape[0], "write_columns")
+    if plane.is_cpu:
         return columns_plain(plane, cols)
     _launch_writer(plane, cols, 0)
     write_columns.launches += 1
@@ -135,11 +156,11 @@ def rebuild(cols) -> torch.Tensor:
     * 1.0000001`` (the TPU probe's ``rebuild``: the 8 vectors twice)."""
     if len(cols) != 8:
         raise ValueError(f"rebuild: 8 vectors needed, got {len(cols)}")
-    _vectors(cols, 8, cols[0].shape[0], "rebuild")
-    if cols[0].device.type == "cpu":
+    slots = cols[0].shape[0]
+    _vectors(cols, 8, slots, "rebuild")
+    if cols[0].is_cpu:
         return rebuild_plain(cols)
-    plane = torch.empty((cols[0].shape[0], PLANE_F), dtype=torch.float32,
-                        device=cols[0].device)
+    plane = cols[0].new_empty((slots, PLANE_F))
     _launch_writer(plane, cols, 1)
     rebuild.launches += 1
     return plane
@@ -153,11 +174,12 @@ def write_rows(t: torch.Tensor, cols) -> torch.Tensor:
     an ``[8, slots]`` f32 plane (the TPU probe's ``rows4_T``).  Returns
     ``t``."""
     k = len(cols)
-    if k not in (4, 8) or t.dim() != 2 or t.shape[0] != 8:
+    shape = t.shape
+    if k not in (4, 8) or len(shape) != 2 or shape[0] != 8:
         raise ValueError(f"write_rows: 4 or 8 vectors and an [8, slots] "
-                         f"plane needed, got {k} and {tuple(t.shape)}")
-    _vectors(cols, k, t.shape[1], "write_rows")
-    if t.device.type == "cpu":
+                         f"plane needed, got {k} and {tuple(shape)}")
+    _vectors(cols, k, shape[1], "write_rows")
+    if t.is_cpu:
         return rows_plain(t, cols)
     _launch_writer(t, cols, 2)
     write_rows.launches += 1
@@ -187,37 +209,40 @@ def _writers(plane, cols, t):
     slots = plane.shape[0]
     pre = [c * SCALE for c in cols]
     p, q = plane.clone(), t.clone()
+    c4 = cols[:4]
     return {
         "columns x8": (write_columns, lambda: write_columns(plane, cols),
                        lambda: columns_plain(p, cols), None,
                        rl.Bound(rl.plane_bytes("columns", slots, 8))),
-        "columns x4": (write_columns, lambda: write_columns(plane, cols[:4]),
-                       lambda: columns_plain(p, cols[:4]), None,
+        "columns x4": (write_columns, lambda: write_columns(plane, c4),
+                       lambda: columns_plain(p, c4), None,
                        rl.Bound(rl.plane_bytes("columns", slots, 4))),
         "rebuild": (rebuild, lambda: rebuild(cols),
                     lambda: rebuild_plain(cols),
                     lambda: torch.stack(pre + pre, -1),
                     rl.Bound(rl.plane_bytes("rebuild", slots))),
-        "rows x4": (write_rows, lambda: write_rows(t, cols[:4]),
-                    lambda: rows_plain(q, cols[:4]), None,
+        "rows x4": (write_rows, lambda: write_rows(t, c4),
+                    lambda: rows_plain(q, c4), None,
                     rl.Bound(rl.plane_bytes("rows", slots, 4))),
     }
 
 
 def check(device) -> int:
-    """Every kernel against its plain version, bitwise: the two
-    transposes, and each writer at both plane sizes (the in-place ones
-    on two copies of one plane).  Returns the number of comparisons;
-    raises on a mismatch."""
+    """Every kernel against its plain version, bitwise: the two probe
+    transposes and ``OTHER_TRANSPOSE``, and each writer at both plane
+    sizes and at ``OTHER_SLOTS`` (the in-place ones on two copies of one
+    plane).  Returns the number of comparisons; raises on a mismatch."""
     n = 0
-    x = torch.as_tensor(np.random.default_rng(1).random((8, 128), np.float32),
-                        device=device)
-    for rows, cols in TRANSPOSES:
-        if not torch.equal(transpose(x[:rows], cols),
-                           transpose_plain(x[:rows], cols)):
-            raise AssertionError(f"transpose [{rows},{cols}] differs")
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.random((8, 128), np.float32), device=device)
+    rows, ld, cols = OTHER_TRANSPOSE
+    y = torch.as_tensor(rng.random((rows, ld), np.float32), device=device)
+    for src, cols in [(x[:r], c) for r, c in TRANSPOSES] + [(y, cols)]:
+        if not torch.equal(transpose(src, cols), transpose_plain(src, cols)):
+            raise AssertionError(f"transpose {list(src.shape)} -> "
+                                 f"[{cols},{src.shape[0]}] differs")
         n += 1
-    for slots in SLOTS.values():
+    for slots in (*SLOTS.values(), *OTHER_SLOTS):
         writers = _writers(*probe_vectors(slots, device=device))
         for name, (_, kernel, plain, _, _) in writers.items():
             got, want = kernel(), plain()
@@ -231,31 +256,54 @@ def check(device) -> int:
 
 def measure(device) -> list:
     """Rows (name, size label, ms, plain ms, library ms or None, Bound,
-    launches, max abs err).  ``launches`` counts the row's calls, its
-    warm-up included; the error is that of the last timed output against
-    the last plain one."""
-    rows = []
+    launches, max abs err, extra).  ``launches`` counts the row's calls,
+    its warm-ups included; the error is that of the last timed output
+    against the last plain one.  ``extra``: the kernel's ``device_ms``
+    (profiler, taken after every CUDA-event timing), where there is a
+    library call its ``library_device_ms``, and for ``columns x4`` its
+    bound and share against the sectors its layout forces."""
+    rows, device_calls = [], []
     x = torch.as_tensor(np.random.default_rng(1).random((8, 128), np.float32),
                         device=device)
     for r, c in TRANSPOSES:
         src = x[:r].contiguous()
-        ms, got, n = timed(lambda: transpose(src, c), REPS, transpose)
-        pms, want, _ = timed(lambda: transpose_plain(src, c), REPS)
-        rows.append((f"transpose [{r},{c}]", "block", ms, pms,
-                     cuda_ms(lambda: src[:, :c].t().contiguous(), REPS),
-                     rl.Bound(rl.transpose_bytes(r, c)), n,
-                     max_abs_err(got, want)))
+        n0 = transpose.launches
+        kern = functools.partial(transpose, src, c)
+        lib = functools.partial(_library_transpose, src, c)
+        ms, lib_ms = cuda_ms_in_turns(kern, lib, TRANSPOSE_REPS,
+                                      TRANSPOSE_ROUNDS)
+        got = kern()
+        pms, want, _ = timed(lambda: transpose_plain(src, c), TRANSPOSE_REPS)
+        extra = {}
+        device_calls += [(extra, "device_ms", kern, "transpose"),
+                         (extra, "library_device_ms", lib, "")]
+        rows.append((f"transpose [{r},{c}]", "block", ms, pms, lib_ms,
+                     rl.Bound(rl.transpose_bytes(r, c)),
+                     transpose.launches - n0, max_abs_err(got, want), extra))
     for label, slots in SLOTS.items():
         plane, cols, t = probe_vectors(slots, device=device)
         for name, (fn, kern, plain, lib, bound) in _writers(plane, cols,
                                                             t).items():
             ms, got, n = timed(kern, REPS, fn)
             pms, want, _ = timed(plain, REPS)
+            extra = {}
+            if name == "columns x4":
+                sec = rl.Bound(rl.plane_sector_bytes(slots, 4))
+                extra = dict(sector_bound_ms=sec.ms,
+                             sector_share=sec.ms / ms)
+            device_calls.append((extra, "device_ms", kern, "plane_"))
+            if lib is not None:
+                device_calls.append((extra, "library_device_ms", lib, ""))
             rows.append((name, f"{label} {slots}", ms, pms,
                          None if lib is None else cuda_ms(lib, REPS), bound,
-                         n, max_abs_err(got, want)))
-        del plane, cols, t
+                         n, max_abs_err(got, want), extra))
+    for extra, key, fn, kernel in device_calls:
+        extra[key] = kernel_device_ms(fn, REPS, kernel)
     return rows
+
+
+def _library_transpose(src, c):
+    return src[:, :c].t().contiguous()
 
 
 def main() -> None:
@@ -265,11 +313,17 @@ def main() -> None:
 
     print(f"checked bitwise against the plain versions: {check(dev)} cases")
     print(f"transposes and plane writers on '{card_line()}':")
-    for name, size, ms, pms, lib, bound, *_ in measure(dev):
+    for name, size, ms, pms, lib, bound, _, _, extra in measure(dev):
         lib_text = "none" if lib is None else f"{lib:.4f} ms"
-        print(f"  {name:18s} {size:18s}: {ms:.4f} ms, bound {bound.ms:.4f} "
-              f"ms ({bound.bytes} B), {100 * bound.ms / ms:.1f}% of bound; "
-              f"plain {pms:.4f} ms; one torch call {lib_text}")
+        if "library_device_ms" in extra:
+            lib_text += f" ({extra['library_device_ms']:.5f} ms on the device)"
+        sec = "" if "sector_share" not in extra else (
+            f", {100 * extra['sector_share']:.1f}% of its sector bound")
+        print(f"  {name:18s} {size:18s}: {ms:.4f} ms a call "
+              f"({extra['device_ms']:.5f} ms on the device), bound "
+              f"{bound.ms:.6f} ms ({bound.bytes} B), "
+              f"{100 * bound.ms / ms:.1f}% of bound{sec}; plain {pms:.4f} "
+              f"ms; one torch call {lib_text}")
 
 
 if __name__ == "__main__":

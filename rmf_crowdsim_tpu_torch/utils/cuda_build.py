@@ -13,7 +13,12 @@ the kernels round every operation as the plain PyTorch versions do (see
 
 Each C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``;
-:func:`launch` raises if that is not ``cudaSuccess``.
+:func:`launch` raises if that is not ``cudaSuccess``.  Loading the library
+binds every entry point of :data:`SIGNATURES` once, with its ctypes
+argument types, so that a launch costs a dict lookup, the raw stream
+(``torch._C._cuda_getCurrentRawStream``, the call PyTorch's own generated
+launchers make) and, only when the tensors' device is not the current one,
+a device guard.
 """
 
 from __future__ import annotations
@@ -51,7 +56,19 @@ SIGNATURES = {
     "crowdsim_mma_chain": "ppppiiiii",
     "crowdsim_transpose": "ppiii",
     "crowdsim_plane_write": "pppppppppiii",
+    # An empty <<<1, 32>>> kernel: the launch floor (probes/launch.py).
+    "crowdsim_noop": "",
 }
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+
+# name -> the bound ctypes function; filled when the library is loaded.
+_LAUNCHERS: dict = {}
+
+
+def argtypes(sig: str) -> list:
+    """The ctypes argument types of a ``SIGNATURES`` code: ``c_void_p``
+    for each pointer and the trailing stream, ``c_int`` for each int."""
+    return [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
 
 
 def _nvcc() -> str:
@@ -112,13 +129,13 @@ def library() -> ctypes.CDLL:
                                + "".join(log))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, sig in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                       for c in sig] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
     lib.crowdsim_error_string.argtypes = [ctypes.c_int]
     lib.crowdsim_error_string.restype = ctypes.c_char_p
+    for name, sig in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes(sig)
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[name] = fn
     return lib
 
 
@@ -131,36 +148,57 @@ def build_log() -> str:
 
 def check_tensors(caller: str, **specs) -> None:
     """Raise unless every ``name=(tensor, dtype, shape)`` is a contiguous
-    CUDA tensor of that dtype and shape, all on one device."""
-    devices = set()
+    CUDA tensor of that dtype and shape (a tuple), all on one device.
+    Checked in the order dtype, shape, contiguity, CUDA, one device."""
+    device = None
     for name, (t, dtype, shape) in specs.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{caller}: {name} must be a CUDA tensor, "
-                             f"got {t.device}")
         if t.dtype != dtype:
             raise ValueError(f"{caller}: {name} must be {dtype}, got "
                              f"{t.dtype}")
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != shape:
             raise ValueError(f"{caller}: {name} must have shape "
                              f"{tuple(shape)}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{caller}: {name} must be contiguous")
-        devices.add(t.device)
-    if len(devices) > 1:
-        raise ValueError(f"{caller}: tensors on several devices {devices}")
+        if not t.is_cuda:
+            raise ValueError(f"{caller}: {name} must be a CUDA tensor, "
+                             f"got {t.device}")
+        if device is None:
+            device = t.get_device()
+        elif t.get_device() != device:
+            devices = {s[0].device for s in specs.values()}
+            raise ValueError(f"{caller}: tensors on several devices "
+                             f"{devices}")
 
 
-def launch(name: str, *args) -> None:
+def _launcher(name: str):
+    """The bound entry point ``name``, loading (and building) the library
+    at the first call; raises for a name not in ``SIGNATURES``."""
+    library()
+    if name not in _LAUNCHERS:
+        raise ValueError(f"launch: no C entry point {name!r} in SIGNATURES")
+    return _LAUNCHERS[name]
+
+
+def launch(name: str, *args, device: int | None = None) -> None:
     """Call C entry point ``name`` with tensors passed as device pointers,
     None as a null pointer and ints as ints, on the current stream of the
-    tensors' device."""
-    lib = library()
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    cargs = [a.data_ptr() if isinstance(a, torch.Tensor)
-             else None if a is None else int(a) for a in args]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*cargs, stream)
+    first argument's device (a tensor's; ``device``, a CUDA index, for an
+    entry point that takes no tensor).  The device guard is entered only
+    where that device is not the current one."""
+    fn = _LAUNCHERS.get(name) or _launcher(name)
+    if device is None:
+        first = args[0] if args else None
+        device = first.get_device() if isinstance(first, torch.Tensor) else -1
+    if device < 0:
+        raise ValueError(f"{name}: launch needs a CUDA tensor as its first "
+                         f"argument or a device index")
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if device == torch._C._cuda_getDevice():
+        err = fn(*cargs, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*cargs, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
-        msg = lib.crowdsim_error_string(err).decode()
+        msg = library().crowdsim_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

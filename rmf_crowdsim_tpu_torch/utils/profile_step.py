@@ -27,6 +27,7 @@ import torch
 from .. import scenes
 
 DT = 1.0 / 60.0
+PROFILE_TRIES = 3   # profiler sessions kernel_device_ms takes at most
 
 
 def card_line() -> str:
@@ -72,6 +73,51 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_in_turns(a, b, reps: int, rounds: int = 1) -> tuple:
+    """(ms a call of ``a``, of ``b``) on CUDA events, from ``rounds``
+    rounds of turns a, b, b, a of ``reps`` calls each, averaged: both
+    sides see the same drift of a shared host."""
+    ms_a = ms_b = 0.0
+    for _ in range(rounds):
+        ms_a += cuda_ms(a, reps)
+        ms_b += cuda_ms(b, reps) + cuda_ms(b, reps)
+        ms_a += cuda_ms(a, reps)
+    return ms_a / (2 * rounds), ms_b / (2 * rounds)
+
+
+def kernel_device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time a call of ``fn`` of the one kernel whose name holds
+    ``kernel`` ('': any) and which each call launches once, over ``reps``
+    calls under ``torch.profiler`` (after one warm-up call): its own time
+    where a launch is shorter than the host time of the call that makes
+    it.  The profiler on the H100 loses a session's first launch at
+    times, and now and then most or all of them, so the mean is taken
+    over the launches it recorded, and a session that recorded fewer
+    than half of them is taken again, up to ``PROFILE_TRIES`` sessions in
+    all; raises if none did.  Raises as well if the calls launch more
+    than one kernel so named, or one more than once a call: a mean over
+    launches is then no time a call."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    for _ in range(PROFILE_TRIES):
+        top = device_kernels(run, reps, top=1 << 30)["top"]
+        hits = [(ms, n, name) for ms, n, name in top if kernel in name]
+        if len(hits) > 1 or (hits and hits[0][1] > 1):
+            raise AssertionError(
+                f"{reps} calls launched more than one kernel named "
+                f"{kernel!r} a call: {[(n, name) for _, n, name in hits]}")
+        if hits and 2 * hits[0][1] >= 1:
+            return hits[0][0] / hits[0][1]
+    raise AssertionError(f"{PROFILE_TRIES} profiles recorded fewer than "
+                         f"half of the {reps} launches of {kernel!r}")
 
 
 def device_kernels(run, steps: int, top: int = 15) -> dict:

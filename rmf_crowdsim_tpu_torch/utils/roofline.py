@@ -44,6 +44,7 @@ TTC_OPS = 37                            # pair_ttc and the running min
 FORCE_OPS = {True: 90, False: 135}      # pair_force<int_prio>
 
 _F32 = 4
+_SECTOR = 32     # bytes: the unit of a DRAM access
 QUERY_F = 11        # features load_query reads from a live query's row
 EMPTY_F = 3         # an empty slot's id and rec (rx, ry)
 OUT_F = 2           # each output row
@@ -376,6 +377,15 @@ def plane_bytes(kind: str, slots: int, k: int = 8) -> int:
     if kind == "rebuild":
         return _F32 * slots * (8 + zb.NUM_F)
     return _F32 * slots * 2 * k
+
+
+def plane_sector_bytes(slots: int, k: int) -> int:
+    """The columns writer's traffic as its layout forces it: the ``k``
+    vectors read once, and each 32-byte sector its stores touch (one a
+    slot for k = 4 or 8: the row's first 16 or 32 bytes) written whole.
+    Equal to :func:`plane_bytes` at k = 8; 48 B a slot against 32 at
+    k = 4."""
+    return slots * (_F32 * k + _SECTOR * -(-_F32 * k // _SECTOR))
 
 
 def transpose_bytes(rows: int, cols: int) -> int:

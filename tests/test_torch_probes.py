@@ -130,6 +130,17 @@ def test_transpose_matches_jax_probe_kernel(kernel, cols):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_transpose_takes_other_shapes():
+    """A block the probe does not time, [16, 48] -> its first 40 columns
+    transposed, through the plain version on the CPU (the runtime-shape
+    kernel on the card)."""
+    rows, ld, cols = planes.OTHER_TRANSPOSE
+    x = np.random.default_rng(2).random((rows, ld)).astype(np.float32)
+    got = planes.transpose(torch.as_tensor(x), cols)
+    assert got.shape == (cols, rows) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), x[:, :cols].T)
+
+
 def _jax_vectors():
     plane, cols, t = planes.probe_vectors(SLOTS, device="cpu")
     return (plane, cols, t, jnp.asarray(plane.numpy()),

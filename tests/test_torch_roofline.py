@@ -292,3 +292,14 @@ def test_plane_bytes_at_the_probe_sizes():
     assert rl.plane_bytes("rebuild", 2_019_072) == 193_830_912
     assert rl.transpose_bytes(8, 128) == 8192
     assert rl.Bound(rl.plane_bytes("rebuild", 2_019_072)).bound_by == "bytes"
+
+
+@pytest.mark.parametrize("slots", [1_835_520, 2_019_072])
+def test_plane_sector_bytes(slots):
+    """The columns writer's 32-byte sectors: one a slot, written whole, so
+    k = 4 moves 48 B a slot against its 32 counted and k = 8 its 64."""
+    assert rl.plane_sector_bytes(slots, 4) == 48 * slots
+    assert rl.plane_sector_bytes(slots, 4) == (
+        rl.plane_bytes("columns", slots, 4) * 3 // 2)
+    assert rl.plane_sector_bytes(slots, 8) == rl.plane_bytes("columns",
+                                                            slots, 8)
