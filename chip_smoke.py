@@ -60,7 +60,10 @@ repository beside it).  Phases, each printing its own line:
    path of the simulator runs: each probe kernel against its plain
    version on the card (K1's stage cuts bitwise on the 1M plane, ``full``
    also bitwise the main K1 and at K4's thread rule; the chained 0/1
-   product bitwise in bf16, s8, tf32 and f32 at 1, 2 and 3 steps; the
+   product bitwise in bf16, s8, tf32 (``mma.sync``) and f32 (FFMA) at
+   1, 2, 3 and 256 steps on the probe's inputs and on inputs
+   whose bits are shown to vary, and each type's link at 1-3 links and,
+   timed, at ``mma_chain.LINKS``, whose bits flip every link; the
    two probe transposes, a [16, 48] -> [40, 16] one and the feature-plane
    writers at both plane sizes and at 3,000 and 1,001 slots, bitwise),
    then the probes' own timing runs with their launch counts set to 0
@@ -69,8 +72,10 @@ repository beside it).  Phases, each printing its own line:
    ``csrc/noop.cu`` through ``cuda_build.launch``, host µs a call over
    10,000 calls beside the launch path before its entry points were bound
    and ``torch.empty(0)``, in turns; its device time), then the stage
-   table, the product times, and the transposes (a call, in turns with
-   ``src[:r, :c].t().contiguous()``, and on the device beside that call's
+   table, the product times (each beside one dependent link's time,
+   the latency bound it makes and the rate bound; the links timed over
+   one launch of ``mma_chain.LINKS``), and the transposes (a call, in
+   turns with ``src[:r, :c].t().contiguous()``, and on the device beside that call's
    copy) and plane writers (a call and on the device, each beside its
    byte bound; ``columns x4`` also beside its 32-byte sectors), with the
    card's name and power limit;
@@ -134,7 +139,10 @@ Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
 and for the probe kernels without one; K1, K2 and K3 also carry their
 launches on path C, path D, the bitwise 1M world of 8c and the bench of
-9a; each probe row also has its ``share`` of its bound, the P4 rows
+9a; each probe row also has its ``share`` of its bound, the P3 rows
+their ``form`` (``mma`` or ``ffma``), ``link_ns``, ``latency_bound_ms``, ``rate_bound_ms`` and
+``ptxas`` line (``bound_by`` ``latency`` where it binds), the
+``mma_link`` rows their ``link_ns``, the P4 rows
 their ``device_ms`` and ``device_share``, and the ``noop`` row the
 launch floor's host µs a call; the empty kernel has no output and no
 plain version, so its ``max_abs_err``, ``plain_ms``, ``bound_by`` and
@@ -499,21 +507,6 @@ def _fresh_dead(torch, dev):
           f"rows max abs err {e4:.3g} (tol {TOL})", flush=True)
 
 
-def _ptxas_registers(log: str, kernel: str) -> dict:
-    """{mangled name: ptxas's "Used ..." and stack-frame lines} of the
-    kernels in the build log whose name holds ``kernel``."""
-    found, name, stack = {}, None, ""
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "stack frame" in line:
-            stack = line.strip()
-        elif "Used" in line and name and kernel in name:
-            found[name] = f"{line.split('Used', 1)[1].strip()}; {stack}"
-            name = None
-    return found
-
-
 def _probes(torch, dev, card, rl) -> list:
     """Phase 6: the measurement probes.  Checks each probe kernel against
     its plain version, then runs the probes' timing entry points with the
@@ -527,7 +520,8 @@ def _probes(torch, dev, card, rl) -> list:
     from rmf_crowdsim_tpu_torch.utils import cuda_build
 
     t0 = time.perf_counter()
-    regs = _ptxas_registers(cuda_build.build_log(), "zanlungo_bucketed_kernel")
+    regs = cuda_build.ptxas_usage(cuda_build.build_log(),
+                                  "zanlungo_bucketed_kernel")
     for name, used in sorted(regs.items()):
         print(f"phase 6 ptxas {name}: {used}")
     _, cfg, params, *_, feat_t, bpos, _ = scenes.bench_bucketed(N_MAIN,
@@ -550,11 +544,23 @@ def _probes(torch, dev, card, rl) -> list:
     n_mma = mma_chain.check(dev)
     n_planes = planes.check(dev)
     print(f"phase 6 P3 mma_chain: {n_mma} cases bitwise (bf16, s8, tf32, "
-          f"f32; both shapes; 1, 2, 3 steps); P4 planes: {n_planes} cases "
-          f"bitwise", flush=True)
+          f"f32; both shapes; the probe's and the "
+          f"straddling inputs; {mma_chain.CHECK_ITERS} steps; each type's "
+          f"link at 1-3 links); P4 planes: {n_planes} cases bitwise",
+          flush=True)
+    for shape, (m, k, n) in mma_chain.SHAPES.items():
+        x, w = mma_chain.straddle_inputs(m, k, n, device=dev)
+        shares = [float(mma_chain.mma_chain_plain(x, w, it)[0].mean())
+                  for it in (1, 2, 3, 4)]
+        if not all(0.0 < v < 1.0 for v in shares):
+            raise AssertionError(f"phase 6 P3 {shape}: the straddling "
+                                 f"inputs' bits settle: {shares}")
+        print(f"phase 6 P3 {shape} straddling inputs: share of bits set at "
+              f"steps 1-4 {[round(v, 4) for v in shares]}", flush=True)
 
     wrappers = {"k1_stage": k1_stages.k1_stage,
                 "mma_chain": mma_chain.mma_chain,
+                "mma_link": mma_chain.mma_link,
                 "transpose": planes.transpose,
                 "write_columns": planes.write_columns,
                 "rebuild": planes.rebuild, "write_rows": planes.write_rows,
@@ -571,12 +577,9 @@ def _probes(torch, dev, card, rl) -> list:
         raise AssertionError(f"the probes never launched {missing}")
     print(k1_stages.stage_table(k1_rows, card))
     print(f"phase 6 P3 chained 0/1 products on '{card}', "
-          f"{mma_chain.ITERS} steps a call:")
-    for shape, dtype, ms, pms, lib, bms, *_ in mma_rows:
-        lib_text = "none" if lib is None else f"{1e6 * lib:.1f} ns"
-        print(f"  {shape:10s} {dtype:4s}: {1e6 * ms:.1f} ns/product, bound "
-              f"{1e6 * bms:.3f} ns at the {dtype} peak; plain "
-              f"{1e6 * pms:.1f} ns; one torch link {lib_text}")
+          f"{mma_chain.ITERS} steps a call; links of {mma_chain.LINKS}:")
+    for r in mma_rows:
+        print(mma_chain.row_text(r))
     print(f"phase 6 P4 transposes and plane writers on '{card}' (a call on "
           f"CUDA events; on the device from the profiler):")
     for name, size, ms, pms, lib, b, _, _, extra in plane_rows:
@@ -626,10 +629,28 @@ def _probes(torch, dev, card, rl) -> list:
                         n, err, ms, pms, b.ms, b.bound_by, None,
                         ms_int_prio_off=ms_off, launches_int_prio_off=n_off,
                         max_abs_err_int_prio_off=err_off))
-    for shape, dtype, ms, pms, lib, bms, b, n, err in mma_rows:
-        rows.append(row(f"mma_chain_{shape}_{dtype}", "mma_chain.cu",
-                        "perf/onehot_int8_probe.py:54", n, err, ms, pms, bms,
-                        b.bound_by, lib, per="product"))
+    for r in mma_rows:
+        name = f"mma_chain_{r['shape']}_{r['dtype']}"
+        extra = {} if r["parent_ms"] is None else {"parent_ms":
+                                                   r["parent_ms"]}
+        rows.append(row(name, "mma_chain.cu", "perf/onehot_int8_probe.py:54",
+                        r["launches"], r["err"], r["ms"], r["plain_ms"],
+                        r["bound"].ms / mma_chain.ITERS, r["bound"].bound_by,
+                        r["library_ms"], per="product", form=r["form"],
+                        link_ns=r["link_ns"], latency_bound_ms=r["latency_ms"],
+                        rate_bound_ms=r["rate_ms"], ptxas=r["ptxas"],
+                        **extra))
+    # The link kernel: a warm-up launch and one of LINKS links a type (the
+    # checks aside); its plain version's time is host time (numpy), every
+    # link computed.
+    for d in mma_chain.DTYPES:
+        lk = next(r for r in mma_rows if r["dtype"] == d)["link"]
+        b = rl.mma_link_bound(d, mma_chain.LINKS)
+        rows.append(row(f"mma_link_{d}", "mma_chain.cu",
+                        "none: the latency bound of the chain of "
+                        "perf/onehot_int8_probe.py:54", lk["launches"],
+                        lk["err"], lk["ms"], lk["plain_ms"], b.ms, b.bound_by,
+                        None, links=mma_chain.LINKS, link_ns=lk["ns"]))
     replaces = {"transpose [8,128]": "perf/transpose_probe.py:59",
                 "transpose [8,64]": "perf/transpose_probe.py:73"}
     for name, size, ms, pms, lib, b, n, err, extra in plane_rows:
@@ -645,7 +666,8 @@ def _probes(torch, dev, card, rl) -> list:
                     None, 0.0, None, None, device_ms=floor["device_ms"],
                     **{k: v for k, v in floor.items()
                        if k.startswith(("host_us", "event_us"))}))
-    # P3 and P4 are bitwise at the timed sizes too (P3 at 4,000 steps).
+    # P3 and P4 are bitwise at the timed sizes too (P3 at 4,000 steps, the
+    # links at LINKS).
     bad = [r["name"] for r in rows if r["max_abs_err"] is not None
            and r["max_abs_err"] != 0.0
            and not r["name"].startswith("k1_stage")]

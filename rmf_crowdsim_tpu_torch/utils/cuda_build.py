@@ -54,6 +54,7 @@ SIGNATURES = {
     # The measurement probes (probes/).
     "crowdsim_k1_stage": "pppppiiiiiii",
     "crowdsim_mma_chain": "ppppiiiii",
+    "crowdsim_mma_link": "pii",
     "crowdsim_transpose": "ppiii",
     "crowdsim_plane_write": "pppppppppiii",
     # An empty <<<1, 32>>> kernel: the launch floor (probes/launch.py).
@@ -144,6 +145,22 @@ def build_log() -> str:
     built by an earlier process and its log is gone)."""
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def ptxas_usage(log: str, kernel: str) -> dict:
+    """{mangled name: ptxas's "Used ..." line (registers, shared memory)
+    and its stack-frame line (spills)} of the kernels in ``log`` (as
+    :func:`build_log` gives it) whose name holds ``kernel``."""
+    found, name, stack = {}, None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "stack frame" in line:
+            stack = line.strip()
+        elif "Used" in line and name and kernel in name:
+            found[name] = f"{line.split('Used', 1)[1].strip()}; {stack}"
+            name = None
+    return found
 
 
 def check_tensors(caller: str, **specs) -> None:

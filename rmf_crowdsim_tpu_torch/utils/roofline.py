@@ -20,6 +20,10 @@ multiply, compare, select, min, max, square root, exponential, sine,
 arcsine and division counted as one.  The counting helpers run the plain
 versions' mask and TTC math on the kernel's own inputs, in chunks, on
 whatever device those lie on.
+
+A chain of dependent products (P3, ``probes/mma_chain.py``) has a third
+time: its links one after another, each at least one dependent
+instruction's latency (``Bound.latency_ms``, :func:`mma_chain_bound`).
 """
 
 from __future__ import annotations
@@ -52,11 +56,14 @@ OUT_F = 2           # each output row
 
 @dataclasses.dataclass(frozen=True)
 class Bound:
-    """A kernel's bytes and operations, and the least time they take."""
+    """A kernel's bytes and operations, and the least time they take;
+    ``latency_ms``, where given, the least time a chain of dependent
+    instructions takes (:func:`mma_chain_bound`)."""
 
     bytes: int
     ops: int = 0
     ops_per_s: float = F32_OPS_PER_S
+    latency_ms: float = 0.0
 
     @property
     def bytes_ms(self) -> float:
@@ -68,10 +75,12 @@ class Bound:
 
     @property
     def ms(self) -> float:
-        return max(self.bytes_ms, self.ops_ms)
+        return max(self.bytes_ms, self.ops_ms, self.latency_ms)
 
     @property
     def bound_by(self) -> str:
+        if self.latency_ms > max(self.bytes_ms, self.ops_ms):
+            return "latency"
         return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
 
 
@@ -365,9 +374,31 @@ def mma_bound(m: int, k: int, n: int, dtype: str, iters: int = 1) -> Bound:
     ``dtype`` (``TENSOR_OPS_PER_S``); x and w read once, the bits and the
     last product written once, all f32.  This is the card's rate, not the
     chain's: each product waits for the one before, so the chain is bound
-    by the latency of its dependent instructions, far above this."""
+    by the latency of its dependent instructions: see
+    :func:`mma_chain_bound`."""
     return Bound(_F32 * (m * k + k * n + 2 * m * n), 2 * m * k * n * iters,
                  TENSOR_OPS_PER_S[dtype])
+
+
+def mma_chain_bound(m: int, k: int, n: int, dtype: str, iters: int,
+                    link_ns: float) -> Bound:
+    """:func:`mma_bound` with the chain's latency: every link of the chain
+    needs at least one dependent instruction of its type (an ``mma.sync``
+    whose A operand is the threshold of the one before, or an ``fmaf``
+    for f32), and ``link_ns`` is the time of one such link as the card
+    runs them back to back (``probes/mma_chain.py`` ``mma_link``), so
+    ``iters`` links take at least ``iters * link_ns``."""
+    rate = mma_bound(m, k, n, dtype, iters)
+    return dataclasses.replace(rate, latency_ms=1e-6 * iters * link_ns)
+
+
+def mma_link_bound(dtype: str, links: int) -> Bound:
+    """``mma_link``'s rate bound: ``links`` products of the smallest
+    ``mma.sync`` of ``dtype`` (16 x 8 x K, K = 16, 32, 8), or for f32 one
+    fma a lane of one warp; the [32, 4] f32 result written once."""
+    k = {"bf16": 16, "s8": 32, "tf32": 8}
+    ops = 2 * 32 if dtype == "f32" else 2 * 16 * 8 * k[dtype]
+    return Bound(_F32 * 32 * 4, ops * links, TENSOR_OPS_PER_S[dtype])
 
 
 def plane_bytes(kind: str, slots: int, k: int = 8) -> int:

@@ -225,13 +225,15 @@ def test_no_wrapper_reaches_the_launcher_on_cpu(monkeypatch):
                          (spill, "spill_window_plain"),
                          (zd, "forces_dense_plain"),
                          (k1_stages, "k1_stage_plain"),
-                         (mma_chain, "mma_chain_plain")):
+                         (mma_chain, "mma_chain_plain"),
+                         (mma_chain, "mma_link_plain")):
         _count(monkeypatch, module, name, calls)
     wrappers = (pack.pack_rows, zb.zanlungo_forces_bucketed,
                 zb.zanlungo_forces_bucketed_spill, spill.spill_window,
                 zd.zanlungo_forces_dense, k1_stages.k1_stage,
-                mma_chain.mma_chain, planes.transpose, planes.write_columns,
-                planes.rebuild, planes.write_rows, launch.noop)
+                mma_chain.mma_chain, mma_chain.mma_link, planes.transpose,
+                planes.write_columns, planes.rebuild, planes.write_rows,
+                launch.noop)
     for fn in wrappers:
         fn.launches = 0
 
@@ -250,6 +252,7 @@ def test_no_wrapper_reaches_the_launcher_on_cpu(monkeypatch):
     k1_stages.k1_stage(cfg, zb.zparams5(params.lp[0]), packed_t, packed_T,
                        "full")
     mma_chain.mma_chain(torch.zeros(8, 128), torch.zeros(128, 128), 1, "s8")
+    mma_chain.mma_link(torch.empty(32, 4), 3, "bf16")
     plane, cols, t = planes.probe_vectors(64, device="cpu")
     planes.transpose(torch.zeros(8, 128), 64)
     planes.write_columns(plane, cols)
@@ -259,7 +262,8 @@ def test_no_wrapper_reaches_the_launcher_on_cpu(monkeypatch):
     assert set(calls) == {"pack_rows_plain", "forces_bucketed_plain",
                           "forces_bucketed_spill_plain",
                           "spill_window_plain", "forces_dense_plain",
-                          "k1_stage_plain", "mma_chain_plain"}, calls
+                          "k1_stage_plain", "mma_chain_plain",
+                          "mma_link_plain"}, calls
     assert [fn.launches for fn in wrappers] == [0] * len(wrappers)
 
 
@@ -338,3 +342,19 @@ def test_launches_on_the_card():
         for _, kernel, plain, _, _ in planes._writers(plane, vecs,
                                                       t).values():
             assert torch.equal(kernel(), plain())
+
+
+@pytest.mark.card
+def test_mma_chain_on_the_card():
+    """On a card: P3 in every shape and type on the straddling
+    inputs at 1, 2 and 3 steps, and each type's link at 1-3 links, bitwise
+    their plain versions (``mma_chain.check``); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: torch.cuda.is_available() is False")
+    dev = torch.device("cuda", 0)
+    n0, l0 = mma_chain.mma_chain.launches, mma_chain.mma_link.launches
+    n = mma_chain.check(dev, iters=(1, 2, 3))
+    per_set = len(mma_chain.SHAPES) * len(mma_chain.DTYPES)
+    assert n == 2 * 3 * per_set + 3 * len(mma_chain.DTYPES)
+    assert mma_chain.mma_chain.launches - n0 == 2 * 3 * per_set
+    assert mma_chain.mma_link.launches - l0 == 3 * len(mma_chain.DTYPES)

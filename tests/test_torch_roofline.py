@@ -282,6 +282,50 @@ def test_mma_bound_at_the_probe_shapes():
     assert one_hot["s8"] < one_hot["bf16"] < one_hot["tf32"] < one_hot["f32"]
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "s8", "tf32", "f32"])
+@pytest.mark.parametrize("m,k,n", [(64, 128, 128), (8, 384, 128)])
+def test_mma_chain_bound_latency_and_rate(m, k, n, dtype):
+    """A link of 20 ns binds the chain by latency (4,000 links: 0.08 ms)
+    wherever it exceeds the type's rate bound a product, which is every
+    tensor-core type and the one-hot f32 (11.7 ns); the prefix f32 (31.3
+    ns a product at 67 TFLOP/s) stays bound by operations.  A link of 0
+    leaves the rate bound as it was."""
+    rate = rl.mma_bound(m, k, n, dtype, 4000)
+    b = rl.mma_chain_bound(m, k, n, dtype, 4000, 20.0)
+    assert (b.bytes, b.ops, b.ops_per_s) == (rate.bytes, rate.ops,
+                                             rate.ops_per_s)
+    assert b.latency_ms == pytest.approx(4000 * 20e-6)
+    if rate.ms < b.latency_ms:
+        assert b.bound_by == "latency" and b.ms == b.latency_ms
+    else:
+        assert (m, k, dtype) == (64, 128, "f32")
+        assert b.bound_by == "operations" and b.ms == rate.ms
+    zero = rl.mma_chain_bound(m, k, n, dtype, 4000, 0.0)
+    assert zero.bound_by == "operations" and zero.ms == rate.ms
+
+
+def test_bound_without_latency_is_unchanged():
+    """``latency_ms`` defaults to 0: bytes and operations decide as they
+    did, ties to bytes."""
+    for args in [(1_000_000,), (1_000_000, 10**9), (670, 10**7)]:
+        b = rl.Bound(*args)
+        assert b.latency_ms == 0.0
+        assert b.ms == max(b.bytes_ms, b.ops_ms)
+        assert b.bound_by == ("bytes" if b.bytes_ms >= b.ops_ms
+                              else "operations")
+    assert rl.Bound(3350, latency_ms=1e-3).bound_by == "latency"
+    assert rl.Bound(3350, latency_ms=1e-6).bound_by == "bytes"
+
+
+def test_mma_link_bound():
+    """One smallest product a link (2 * 16 * 8 * K operations) at the
+    type's rate; f32 one fma a lane of a warp."""
+    b = rl.mma_link_bound("bf16", 200_000)
+    assert b.ops == 2 * 16 * 8 * 16 * 200_000 and b.bytes == 512
+    assert b.bound_by == "operations"
+    assert rl.mma_link_bound("f32", 10).ops == 640
+
+
 def test_plane_bytes_at_the_probe_sizes():
     """Each writer reads its vectors and writes its floats once: at the
     1M bucketed plane's 1,835,520 slots and the dense path's 2,019,072
