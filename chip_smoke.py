@@ -133,13 +133,30 @@ repository beside it).  Phases, each printing its own line:
    ``phase 9 bench: ``.  9b, ``tools.validate_highD`` at D = 16: the
    halo table, then the crossing scene in bitwise mode equal to D = 1 bit
    for bit with migrations, and in tolerance mode within 1e-5 with the
-   lifecycle counters equal.
+   lifecycle counters equal;
+10. the randomized differential sweep of tests/test_fuzz_step.py on the
+   card, with the launch counts set to 0 just before and read just
+   after: 10a, its 43 cases (``scenes.fuzz_cases``: backends agree,
+   bucket 32, the sweep on ``grid_pallas`` and on ``grid_dense``), the
+   CPU test ``tests/test_torch_fuzz_step.py`` on CUDA sessions; 10b, 16
+   wide cases (``scenes.wide_cases``: 120-200 m worlds of 31 or more
+   tiles a column, 1,500-3,000 agents and 2-6 hotspots of 48-96 in
+   capacity 4,096, random configs, 5 steps at dt = 1/60).  Each case
+   holds every fast backend against ``brute`` by uid at the JAX file's
+   tolerances (2e-5 ``grid``, 2e-4 the kernel backends), the rollout
+   counters equal, truncation 0; then K1, K1b, K2, K3 and K4 each
+   launched, a fused-spill wide case past K1b's 128 spill lanes (K2's
+   storm branch) and a ``grid_pallas`` case at ``SimConfig``'s default
+   bucket, tile, presort, integer priorities, pack and spill repair; one
+   line each for 10a and 10b (cases, steps, max error per backend
+   against its tolerance, largest tile occupancy and spills, seconds).
 
 Then one JSON line of per-kernel results (``library_ms`` is null for the
 five simulator kernels, as no single PyTorch call computes any of them,
-and for the probe kernels without one; K1, K2 and K3 also carry their
-launches on path C, path D, the bitwise 1M world of 8c and the bench of
-9a; each probe row also has its ``share`` of its bound, the P3 rows
+and for the probe kernels without one; the five simulator kernels
+carry their launches in phase 10 as ``launches_fuzz``, and K1, K2 and
+K3 their launches on path C, path D, the bitwise 1M world of 8c and the
+bench of 9a; each probe row also has its ``share`` of its bound, the P3 rows
 their ``form`` (``mma`` or ``ffma``), ``link_ns``, ``latency_bound_ms``, ``rate_bound_ms`` and
 ``ptxas`` line (``bound_by`` ``latency`` where it binds), the
 ``mma_link`` rows their ``link_ns``, the P4 rows
@@ -1432,11 +1449,88 @@ def _validate_phase(dev, card):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# Phase 10: the SimConfig knobs of which one case must keep the defaults.
+DEFAULT_KNOBS = ("bucket_capacity", "bucket_tile_size", "presort",
+                 "integer_priorities", "use_pack_kernel", "fused_spills")
+
+
+def _fuzz_phase(torch, dev, card, kernels):
+    """Phase 10: the randomized differential sweep on the card.  10a, the
+    43 cases of tests/test_fuzz_step.py (``scenes.fuzz_cases``); 10b, the
+    16 wide cases (``scenes.wide_cases``): each through the port's
+    sessions, every fast backend against ``brute`` by uid at the JAX
+    file's tolerances, counters equal, truncation 0.  The launch counts
+    are set to 0 before the phase and read after it; every kernel of
+    ``kernels`` (the five of the simulator's paths) must have launched, a fused-spill wide case must
+    have passed more spills than K1b's lanes through K2's storm branch,
+    and a ``grid_pallas`` case must have kept every ``DEFAULT_KNOBS`` at
+    ``SimConfig``'s default.  Returns the launch counts."""
+    import dataclasses
+
+    from rmf_crowdsim_tpu_torch import SimConfig, scenes
+    from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
+
+    defaults = {f.name: f.default for f in dataclasses.fields(SimConfig)
+                if f.name in DEFAULT_KNOBS}
+    for fn in kernels.values():
+        fn.launches = 0
+    default_cases, storms = [], []
+    for label, cases in (("10a", scenes.fuzz_cases()),
+                         ("10b", scenes.wide_cases())):
+        t0 = time.perf_counter()
+        errs, shares, steps, occ, spills = {}, {}, 0, 0, 0
+        for case in cases:
+            out = scenes.run_fuzz_case(case, dev)
+            if out["truncated"] or out["steps"] != case.n_steps:
+                raise AssertionError(f"phase {label} {case.name}: "
+                                     f"{out['truncated']} truncated, "
+                                     f"{out['steps']} steps")
+            steps += out["steps"]
+            for b, e in out["err"].items():
+                errs[b] = max(errs.get(b, 0.0), e)
+                shares[b] = max(shares.get(b, 0.0), out["share"][b])
+            occ = max(occ, out["max_occ"])
+            spills = max(spills, out["max_spills"])
+            cfg = scenes.fuzz_config(case, case.fast[-1])
+            if "grid_pallas" in case.fast and all(
+                    getattr(cfg, k) == v for k, v in defaults.items()):
+                default_cases.append(case.name)
+            if (label == "10b" and cfg.fused_spills
+                    and out["max_spills"] > zb.FUSED_SPILL_LANES):
+                storms.append(case.name)
+        torch.cuda.synchronize()
+        err_text = ", ".join(
+            f"{b} {e:.3g} ({100 * shares[b]:.1f}% of rtol = atol = "
+            f"{scenes.FUZZ_TOL[b]})" for b, e in sorted(errs.items()))
+        print(f"phase {label} fuzz sweep on '{card}': {len(cases)} cases, "
+              f"{steps} steps, each against brute by uid; max abs err "
+              f"{err_text}; counters equal; truncated 0; largest tile "
+              f"occupancy {occ}, spills {spills}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"phase 10: never launched {missing}")
+    if not storms:
+        raise AssertionError(f"phase 10b: no fused-spill case passed more "
+                             f"than {zb.FUSED_SPILL_LANES} spills through "
+                             f"K2's storm branch")
+    if not default_cases:
+        raise AssertionError(f"phase 10: no grid_pallas case kept the "
+                             f"defaults {defaults}")
+    print(f"phase 10 launches {launches}; K2 storm (> "
+          f"{zb.FUSED_SPILL_LANES} spills) in {storms}; the defaults "
+          f"{defaults} in {len(default_cases)} cases ({default_cases[0]} "
+          f"first)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1959,6 +2053,12 @@ def main() -> int:
     launches_b = _bench_phase(kernels, card)
     torch.cuda.empty_cache()
     _validate_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the randomized differential sweep ---------------------
+    launches_f = _fuzz_phase(torch, dev, card, kernels)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"build included", flush=True)
 
     source = {
         "pack_rows": ("rmf_crowdsim_tpu_torch/csrc/pack_rows.cu",
@@ -1984,6 +2084,7 @@ def main() -> int:
          "library_ms": None,
          **({"device_ms": results[name]["device_ms"]}
             if "device_ms" in results[name] else {}),
+         "launches_fuzz": launches_f[name],
          **({"launches_path_c": launches_c[name],
              "launches_path_d": launches_d[name],
              "launches_world": launches_w[name],

@@ -109,11 +109,14 @@ __device__ __forceinline__ void pair_force(const Params& zp, float t_i,
   bool neg_row = row < 0.f;
   float w, mvx, mvy, ovx, ovy;
   if (INT_PRIO) {
+    // cv + 1 * (cf - cv), rounded as the general path and the oracle round
+    // it: at t_i == 0 one rounding step of speed difference is the
+    // difference between no force and force_cap.
     w = row;
     mvx = q.vx;
     mvy = q.vy;
-    ovx = neg_row ? cfx : cvx;
-    ovy = neg_row ? cfy : cvy;
+    ovx = neg_row ? cvx + (cfx - cvx) : cvx;
+    ovy = neg_row ? cvy + (cfy - cvy) : cvy;
   } else {
     float r2 = sqrtf(fabsf(row));
     float r2n = row < 0.f ? r2 : 0.f;

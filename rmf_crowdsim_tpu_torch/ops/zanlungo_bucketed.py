@@ -352,10 +352,16 @@ def _pair_force(zp5, t_i, inv_t, qpx, qpy, qvx, qvy, qspx, qspy, qprio,
     row = torch.clamp(qprio - cprio, -1.0, 1.0)
     neg_row = row < 0
     if int_prio:
+        # Full right of way takes the candidate's committed preference as
+        # ``cv + 1 * (cf - cv)``, rounded as the general path and the
+        # oracle round it, not as ``cf``: at t_i == 0 a speed difference
+        # of one rounding step is the difference between no force and
+        # ``force_cap``.  (Query-outranks pairs have weight 0, so
+        # ``mv == qv`` changes nothing.)
         w = row
         mvx, mvy = qvx, qvy
-        ovx = torch.where(neg_row, cfx, cvx)
-        ovy = torch.where(neg_row, cfy, cvy)
+        ovx = torch.where(neg_row, cvx + (cfx - cvx), cvx)
+        ovy = torch.where(neg_row, cvy + (cfy - cvy), cvy)
     else:
         r2 = torch.sqrt(torch.abs(row))
         r2n = torch.where(row < 0, r2, zero)

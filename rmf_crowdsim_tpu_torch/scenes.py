@@ -24,12 +24,21 @@ world, sinks on the right, agents crossing every region boundary.
 of one shard of a D-shard bench world at full width, on one shard.
 ``build_rmf_hall`` is ``bench.py:299-390``'s walled hall with every agent
 routed by an ``RMFPlanner``.
+
+The randomized differential sweep of tests/test_fuzz_step.py is here as
+plain data: ``fuzz_case``, ``agree_case`` and ``bucket32_case`` draw its
+cases seed for seed into a ``FuzzCase`` (no JAX needed), which
+``populate_fuzz_session`` adds to a ``Simulation`` of either package and
+``drive_fuzz`` steps and holds against ``brute``; ``wide_cases`` are the
+same draws at the card's scale.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
+import sys
 import time
 
 import numpy as np
@@ -165,13 +174,17 @@ def build_bench(n_agents: int, dtype: str = "float32",
     return rollout, params, state
 
 
-def bench_bucket_config(n_agents: int) -> zb.BucketConfig:
-    """The bucketed layout of the ``grid_pallas`` bench scene."""
-    c = bench_config(n_agents)
+def bucket_config(c: SimConfig) -> zb.BucketConfig:
+    """The bucketed layout ``build_step`` derives from ``c``."""
     return zb.BucketConfig.create(
         c.grid.width, c.grid.height, c.grid.offset, c.max_eyesight,
         bucket=c.bucket_capacity, strip_tiles=c.strip_tiles,
-        sub_tiles=c.sub_tiles, tile_size=c.bucket_tile_size)
+        sub_tiles=c.sub_tiles, tile_size=c.bucket_tile_size or None)
+
+
+def bench_bucket_config(n_agents: int) -> zb.BucketConfig:
+    """The bucketed layout of the ``grid_pallas`` bench scene."""
+    return bucket_config(bench_config(n_agents))
 
 
 def bench_dense_config(n_agents: int, capacity: int = 0) -> DenseConfig:
@@ -513,3 +526,506 @@ def crossing_scene(capacity: int = 128, dual_row: bool = False,
     params = SimParams(hl=(hl.init_params(device),),
                        lp=(lp.init_params(device),), sources=sp)
     return cfg, hl, lp, params, make_state(cfg, seed=3, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The randomized differential sweep (tests/test_fuzz_step.py) as plain data
+# ---------------------------------------------------------------------------
+
+# rtol = atol of each fast backend against ``brute``
+# (tests/test_fuzz_step.py:79-85, 124, 244).
+FUZZ_TOL = {"grid": 2e-5, "grid_pallas": 2e-4, "grid_dense": 2e-4}
+# The rollout counters a ``run()`` case holds equal to brute's
+# (tests/test_fuzz_step.py:254-259).
+FUZZ_RUN_COUNTERS = ("n_alive", "n_spawned", "n_destroyed",
+                     "n_waypoint_reached")
+# The sweep draws its config from ``10_000 + seed`` and its scene from
+# ``20_000 + seed`` (tests/test_fuzz_step.py:211, 225); the wide cases from
+# their own two bases, so wide seed s is no relative of sweep seed s.
+FUZZ_SEED_BASES = (10_000, 20_000)
+WIDE_SEED_BASES = (50_000, 60_000)
+# The wide cases: capacity, uniform crowd, hotspots (each in a 2 m square,
+# as in bench_positions), sources, rows of tiles a column at least, and
+# the tiles a K1 / K4 block takes (K1_TILES_PER_BLOCK, K4_TILES_PER_BLOCK).
+WIDE_CAPACITY = 4096
+WIDE_CROWD = (1500, 3000)
+WIDE_HOTSPOTS = (2, 6)
+WIDE_HOTSPOT_AGENTS = (48, 96)
+WIDE_SOURCES = (0, 8)
+WIDE_MIN_TILES = 31
+WIDE_BLOCK_TILES = 15
+WIDE_STEPS = 5
+WIDE_DT = 1.0 / 60.0
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceSpec:
+    """One SourceSink as plain data: ``generator`` is ``"poisson"``
+    (``PoissonCrowd(rate)``) or ``"monotonic"`` (``MonotonicCrowd(rate)``);
+    ``eyesight`` is its agents' eyesight."""
+
+    source: tuple
+    waypoints: tuple
+    radius_sink: float
+    generator: str
+    rate: float
+    eyesight: float
+    loop_forever: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class FuzzCase:
+    """One case of the randomized differential sweep as plain data, which
+    either package can build into a ``Simulation``.
+
+    ``fast``: the backends held against ``brute``, each to ``tol[b]``
+    (rtol = atol).  ``config``: the ``SimConfig`` fields but
+    ``neighbor_backend``, with ``grid`` a dict of ``GridConfig`` fields.
+    ``hl_velocity``: ``ParityVelocity``'s; ``lp``: ``Zanlungo``'s keyword
+    arguments; one planner of each serves the agents and every source.
+    ``positions`` [n, 2] and ``eyesight`` [n] (float64): the agents added
+    by ``add_agents``, in uid order.  ``mode``: ``"step"`` (``n_steps``
+    calls of ``step(dt)``, compared after each) or ``"run"`` (one
+    ``run(n_steps, dt)``, its counters compared too).  ``churn``: after
+    every third ``step()`` one agent alive on every backend is removed,
+    drawn from ``rng`` (:func:`drive_fuzz` draws from a copy, so a case
+    can be driven again)."""
+
+    name: str
+    seed: int
+    fast: tuple
+    config: dict
+    hl_velocity: tuple
+    lp: dict
+    positions: np.ndarray
+    eyesight: np.ndarray
+    sources: tuple
+    mode: str
+    dt: float
+    n_steps: int
+    churn: bool
+    rng: np.random.Generator
+    tol: dict
+
+
+def _fuzz_config(rng, wide: bool):
+    """``_random_config``'s draws (tests/test_fuzz_step.py:133-175), in
+    its order; ``wide``: a 120-200 m world grown, where needed, until a
+    column holds at least ``WIDE_MIN_TILES`` tiles and its last K1 and K4
+    block is partial, capacity ``WIDE_CAPACITY`` and ``spill_capacity``
+    the capacity.  Returns (config fields, world, eyesight)."""
+    bucket = int(rng.choice([16, 32]))
+    sub = 128 // bucket - 2
+    strip = sub * int(rng.integers(1, 3))
+    eye = float(rng.uniform(1.8, 3.2))
+    world = float(rng.uniform(*((120.0, 200.0) if wide else (26.0, 44.0))))
+    cell = float(rng.uniform(2.0, 4.0))
+    tile_size = (0.0 if rng.random() < 0.5
+                 else eye * float(rng.uniform(1.0, 1.7)))
+    capacity = WIDE_CAPACITY if wide else 64
+    fields = dict(
+        capacity=capacity,
+        max_per_cell=64,
+        max_eyesight=eye,
+        bucket_capacity=bucket,
+        strip_tiles=strip,
+        sub_tiles=sub,
+        bucket_tile_size=tile_size,
+        use_pack_kernel=bool(rng.random() < 0.5),
+        presort=bool(rng.random() < 0.5),
+        spill_capacity=int(rng.choice([64, 128])),
+        fused_spills=bool(rng.random() < 0.5),
+        dual_row=bool(rng.random() < 0.5),
+        dense_col_headroom=float(rng.uniform(1.5, 2.5)),
+        commit_preferred_vel=bool(rng.random() < 0.5),
+        integer_priorities=bool(rng.random() < 0.5),
+        pallas_interpret=True,
+        dtype="float32",
+        on_truncation="raise",
+    )
+    if wide:
+        fields["spill_capacity"] = capacity
+        tile = max(tile_size, eye)
+        n = max(WIDE_MIN_TILES, math.ceil(world / tile))
+        while True:
+            world = n * tile - 0.1
+            bcfg = zb.BucketConfig.create(world, world, (0.0, 0.0), eye,
+                                          bucket=bucket, strip_tiles=strip,
+                                          sub_tiles=sub,
+                                          tile_size=tile_size or None)
+            if n % WIDE_BLOCK_TILES and bcfg.ty % WIDE_BLOCK_TILES:
+                break
+            n += 1
+    fields["grid"] = dict(width=world, height=world, cell_size=cell,
+                          offset=(0.0, 0.0))
+    return fields, world, eye
+
+
+def _fuzz_planners(rng):
+    """``_build_pair``'s planner draws (tests/test_fuzz_step.py:215-222):
+    (ParityVelocity's velocity, Zanlungo's keyword arguments)."""
+    hl = (float(rng.uniform(0.5, 1.3)), float(rng.uniform(-0.6, 0.6)))
+    lp = dict(agent_scale=float(rng.uniform(0.8, 2.0)), obstacle_scale=1.0,
+              reaction_time=0.0, force_distance=float(rng.uniform(1.0, 2.0)),
+              agent_mass=float(rng.uniform(1.0, 3.0)),
+              agent_radius=float(rng.uniform(0.15, 0.35)),
+              force_cap=float(rng.uniform(20.0, 200.0)))
+    return hl, lp
+
+
+def _fuzz_sources(rng, world, eye, n_sources, rates, margin):
+    """``_random_scene``'s SourceSink draws (tests/test_fuzz_step.py:
+    189-205); ``rates``: the Poisson and the monotonic rate ranges."""
+    out = []
+    for _ in range(n_sources):
+        if rng.random() < 0.5:
+            gen, rate = "poisson", float(rng.uniform(*rates[0]))
+        else:
+            gen, rate = "monotonic", float(rng.uniform(*rates[1]))
+        wps = tuple(tuple(float(v) for v in
+                          rng.uniform(margin, world - margin, (2,)))
+                    for _ in range(int(rng.integers(1, 4))))
+        src = tuple(float(v) for v in rng.uniform(margin, world - margin,
+                                                  (2,)))
+        out.append(SourceSpec(
+            source=src, waypoints=wps,
+            radius_sink=float(rng.uniform(0.8, 1.8)), generator=gen,
+            rate=rate, eyesight=float(rng.uniform(1.2, eye)),
+            loop_forever=bool(rng.random() < 0.3)))
+    return tuple(out)
+
+
+def _fuzz_scene(rng, world, eye):
+    """``_random_scene`` (tests/test_fuzz_step.py:178-205): 8-25 agents,
+    in 40% of seeds half of them packed into a 1.2 m square; 0-2
+    sources.  Returns (positions, eyesight, sources)."""
+    n = int(rng.integers(8, 26))
+    margin = 3.0
+    pts = rng.uniform(margin, world - margin, (n, 2))
+    if rng.random() < 0.4:
+        center = rng.uniform(world * 0.3, world * 0.7, (2,))
+        pts[: n // 2] = center + rng.uniform(-0.6, 0.6, (n // 2, 2))
+    eyesight = np.full((n,), float(rng.uniform(1.2, eye)))
+    sources = _fuzz_sources(rng, world, eye, int(rng.integers(0, 3)),
+                            ((0.5, 3.0), (0.5, 1.5)), margin)
+    return pts, eyesight, sources
+
+
+def _wide_scene(rng, world, eye):
+    """The wide scene: ``WIDE_CROWD`` agents uniform in the interior, then
+    ``WIDE_HOTSPOTS`` hotspots of ``WIDE_HOTSPOT_AGENTS`` agents, each in
+    a 2 m square, one a band of x and at least 6 m (more than a tile)
+    apart, so that no dense column holds two; every agent sees at least
+    1.8 m, so each hotspot agent has more than ``K1_LIST_CAP``
+    neighbours.  ``WIDE_SOURCES`` sources at 30-180 (Poisson) or 30-90
+    (monotonic) agents/s, which spawn at dt = 1/60.  Returns (positions
+    with the hotspots first, eyesight, sources)."""
+    margin = 3.0
+    crowd = rng.uniform(margin, world - margin,
+                        (int(rng.integers(WIDE_CROWD[0], WIDE_CROWD[1] + 1)),
+                         2))
+    n_hot = int(rng.integers(WIDE_HOTSPOTS[0], WIDE_HOTSPOTS[1] + 1))
+    band = (world - 2 * margin) / n_hot
+    hot = []
+    for h in range(n_hot):
+        k = int(rng.integers(WIDE_HOTSPOT_AGENTS[0],
+                             WIDE_HOTSPOT_AGENTS[1] + 1))
+        corner = (margin + band * h + rng.uniform(0.0, band - 8.0),
+                  rng.uniform(margin, world - margin - 2.0))
+        hot.append(rng.uniform(0.0, 2.0, (k, 2)) + np.asarray(corner))
+    pts = np.concatenate(hot + [crowd])
+    eyesight = np.full((pts.shape[0],), float(rng.uniform(1.8, eye)))
+    sources = _fuzz_sources(
+        rng, world, eye, int(rng.integers(WIDE_SOURCES[0],
+                                          WIDE_SOURCES[1] + 1)),
+        ((30.0, 180.0), (30.0, 90.0)), margin)
+    return pts, eyesight, sources
+
+
+def fuzz_case(seed: int, backend: str = "grid_pallas",
+              wide: bool = False) -> FuzzCase:
+    """Seed ``seed`` of the randomized sweep on ``backend``
+    (``grid_pallas``: ``test_randomized_config_sweep``, ``grid_dense``:
+    ``..._dense``), drawn as ``_build_pair`` and ``_run_sweep`` draw it
+    (tests/test_fuzz_step.py:208-279): the config, then the planners,
+    then dt (0.12-0.28 s) and the stepping mode (``run()`` of 4-8 steps in 35%
+    of seeds, else 8 ``step()`` calls with churn) from ``10_000 + seed``;
+    the scene from ``20_000 + seed``.  ``wide``: the same draws at the
+    card's scale (:func:`_fuzz_config`, :func:`_wide_scene`), from
+    ``WIDE_SEED_BASES``, ``WIDE_STEPS`` steps at ``WIDE_DT``."""
+    bases = WIDE_SEED_BASES if wide else FUZZ_SEED_BASES
+    rng = np.random.default_rng(bases[0] + seed)
+    fields, world, eye = _fuzz_config(rng, wide)
+    hl, lp = _fuzz_planners(rng)
+    scene_rng = np.random.default_rng(bases[1] + seed)
+    pts, eyesight, sources = (_wide_scene if wide else _fuzz_scene)(
+        scene_rng, world, eye)
+    if wide:
+        dt = WIDE_DT
+        use_run = rng.random() < 0.35
+        n_steps = WIDE_STEPS
+    else:
+        dt = float(rng.uniform(0.12, 0.28))
+        use_run = rng.random() < 0.35
+        n_steps = int(rng.integers(4, 9)) if use_run else 8
+    family = "wide" if wide else "randomized_config_sweep"
+    return FuzzCase(
+        name=f"{family}[{backend} {seed}]", seed=seed, fast=(backend,),
+        config=fields, hl_velocity=hl, lp=lp, positions=pts,
+        eyesight=eyesight, sources=sources,
+        mode="run" if use_run else "step", dt=dt, n_steps=n_steps,
+        churn=not use_run, rng=rng, tol={backend: FUZZ_TOL[backend]})
+
+
+# The fixed families' Zanlungo (tests/test_fuzz_step.py:49-51, 110).
+_FIXED_ZANLUNGO = dict(agent_scale=1.2, obstacle_scale=1.0,
+                       reaction_time=0.0, force_distance=1.5,
+                       agent_mass=2.0, agent_radius=0.25, force_cap=100.0)
+
+
+def agree_case(seed: int) -> FuzzCase:
+    """``test_backends_agree_on_random_scenes`` (tests/test_fuzz_step.py:
+    32-85): ``build(backend, seed)`` on ``brute``, ``grid`` and
+    ``grid_pallas``, 12 steps of 0.2 s, no churn."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(3.0, 33.0, (rng.integers(10, 30), 2))
+    eyesight = np.full((pts.shape[0],), float(rng.uniform(1.0, 3.0)))
+    config = dict(
+        capacity=64,
+        grid=dict(width=36.0, height=36.0, cell_size=3.0, offset=(0.0, 0.0)),
+        max_per_cell=64, max_eyesight=3.0, bucket_capacity=16,
+        strip_tiles=6, sub_tiles=6, pallas_interpret=True, dtype="float32")
+    gen = ("poisson", 2.0) if seed % 2 else ("monotonic", 1.0)
+    source = SourceSpec(source=(2.0, 18.0),
+                        waypoints=((18.0, 18.0), (34.0, 18.0)),
+                        radius_sink=1.5, generator=gen[0], rate=gen[1],
+                        eyesight=2.0)
+    return FuzzCase(
+        name=f"backends_agree[{seed}]", seed=seed,
+        fast=("grid", "grid_pallas"), config=config,
+        hl_velocity=(1.0, 0.4), lp=_FIXED_ZANLUNGO, positions=pts,
+        eyesight=eyesight, sources=(source,), mode="step", dt=0.2,
+        n_steps=12, churn=False, rng=rng,
+        tol={b: FUZZ_TOL[b] for b in ("grid", "grid_pallas")})
+
+
+def bucket32_case(seed: int) -> FuzzCase:
+    """``test_big_tile_bucket32_matches`` (tests/test_fuzz_step.py:
+    88-125): 24 agents, buckets of 32 on 6 m tiles, ``grid_pallas``
+    against ``brute``, 10 steps of 0.2 s."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(3.0, 33.0, (24, 2))
+    config = dict(
+        capacity=64,
+        grid=dict(width=36.0, height=36.0, cell_size=3.0, offset=(0.0, 0.0)),
+        max_per_cell=64, max_eyesight=3.0, bucket_capacity=32,
+        strip_tiles=4, sub_tiles=2, bucket_tile_size=6.0,
+        pallas_interpret=True, dtype="float32")
+    return FuzzCase(
+        name=f"big_tile_bucket32[{seed}]", seed=seed, fast=("grid_pallas",),
+        config=config, hl_velocity=(1.0, 0.4), lp=_FIXED_ZANLUNGO,
+        positions=pts, eyesight=np.full((24,), 3.0), sources=(),
+        mode="step", dt=0.2, n_steps=10, churn=False, rng=rng,
+        tol={"grid_pallas": FUZZ_TOL["grid_pallas"]})
+
+
+def fuzz_cases() -> list:
+    """The 43 cases of tests/test_fuzz_step.py in its order: backends
+    agree (seeds 0-4), bucket 32 (0, 2), the sweep on ``grid_pallas``
+    (0-23) and on ``grid_dense`` (0-11)."""
+    return ([agree_case(s) for s in range(5)]
+            + [bucket32_case(s) for s in (0, 2)]
+            + [fuzz_case(s) for s in range(24)]
+            + [fuzz_case(s, "grid_dense") for s in range(12)])
+
+
+def monotonic_sources(case: FuzzCase) -> FuzzCase:
+    """``case`` with every ``PoissonCrowd`` source replaced by a
+    ``MonotonicCrowd`` of the same rate: the two packages draw Poisson
+    counts from different generators, so a case held across packages
+    takes this form."""
+    return dataclasses.replace(case, sources=tuple(
+        dataclasses.replace(s, generator="monotonic") for s in case.sources))
+
+
+def populate_fuzz_session(sim, case: FuzzCase, pkg) -> None:
+    """Add ``case``'s agents and sources to ``sim``, a ``Simulation`` of
+    ``pkg`` (a package with the session's API: ``ParityVelocity``,
+    ``Zanlungo``, ``SourceSink``, ``PoissonCrowd``, ``MonotonicCrowd``),
+    as the sweep does: one planner of each kind for every agent and
+    source, the agents in runs of equal eyesight."""
+    hl = pkg.ParityVelocity(case.hl_velocity)
+    lp = pkg.Zanlungo(**case.lp)
+    eye = case.eyesight
+    cuts = [0] + [i for i in range(1, eye.shape[0]) if eye[i] != eye[i - 1]]
+    for lo, hi in zip(cuts, cuts[1:] + [eye.shape[0]]):
+        sim.add_agents([tuple(p) for p in case.positions[lo:hi]], hl, lp,
+                       agent_eyesight_range=float(eye[lo]))
+    gens = {"poisson": pkg.PoissonCrowd, "monotonic": pkg.MonotonicCrowd}
+    for s in case.sources:
+        sim.add_source_sink(pkg.SourceSink(
+            source=s.source, waypoints=list(s.waypoints),
+            radius_sink=s.radius_sink,
+            crowd_generator=gens[s.generator](s.rate),
+            high_level_planner=hl, local_planner=lp,
+            agent_eyesight_range=s.eyesight, loop_forever=s.loop_forever))
+
+
+def fuzz_config(case: FuzzCase, backend: str, pkg=None):
+    """``case``'s ``SimConfig`` on ``backend``, of ``pkg`` (this
+    package by default)."""
+    if pkg is None:
+        grid_cls, cfg_cls = GridConfig, SimConfig
+    else:
+        grid_cls, cfg_cls = pkg.GridConfig, pkg.SimConfig
+    fields = dict(case.config)
+    grid = grid_cls(**fields.pop("grid"))
+    return cfg_cls(grid=grid, neighbor_backend=backend, **fields)
+
+
+def build_fuzz_session(case: FuzzCase, backend: str,
+                       device="cuda") -> Simulation:
+    """The port's ``Simulation`` of ``case`` on ``backend`` and ``device``
+    (the card unless the caller names another device), seeded with the
+    case's seed."""
+    sim = Simulation(fuzz_config(case, backend), seed=case.seed,
+                     device=device)
+    populate_fuzz_session(sim, case, sys.modules[__package__])
+    return sim
+
+
+def fuzz_spills(sim: Simulation) -> int:
+    """The bucket overflows (``n_bucket_over``, the spills) of a
+    ``grid_pallas`` session's state as its step would bin it afresh."""
+    bcfg = bucket_config(sim.config)
+    key = zb.tile_key(bcfg, sim.state.position, sim.state.alive)
+    _, _, over = zb.rank_from_sorted_key(bcfg, torch.sort(key).values)
+    return int(over)
+
+
+def _fetch(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _by_uid(sim):
+    """(sorted uids, positions [n, 2] in that order) of a session."""
+    agents = sim.agents
+    uids = sorted(agents)
+    pos = np.asarray([agents[u].position for u in uids], np.float64)
+    return uids, pos.reshape(len(uids), 2)
+
+
+def _match(case: FuzzCase, snaps: dict, label: str, out: dict) -> None:
+    """Every fast backend's live agents against brute's: the same uids,
+    positions by uid within the backend's tolerance
+    (tests/test_fuzz_step.py:236-245); records each backend's largest
+    absolute error and largest share of its allowance ``tol + tol *
+    |brute|``."""
+    uids, ref = snaps["brute"]
+    for b in case.fast:
+        got_uids, got = snaps[b]
+        if got_uids != uids:
+            raise AssertionError(
+                f"{case.name} {label}: alive sets differ (brute-only "
+                f"{sorted(set(uids) - set(got_uids))}, {b}-only "
+                f"{sorted(set(got_uids) - set(uids))})")
+        tol = case.tol[b]
+        np.testing.assert_allclose(got, ref, rtol=tol, atol=tol,
+                                   err_msg=f"{case.name} {label}: {b}")
+        if uids:
+            d = np.abs(got - ref)
+            out["err"][b] = max(out["err"][b], float(d.max()))
+            out["share"][b] = max(out["share"][b], float(
+                (d / (tol + tol * np.abs(ref))).max()))
+
+
+def drive_fuzz(case: FuzzCase, sims: dict) -> dict:
+    """Drive ``sims`` ({"brute": oracle, fast backend: session, ...}, of
+    either package) through ``case`` as ``_run_sweep`` does
+    (tests/test_fuzz_step.py:248-279) and hold each fast backend against
+    brute; raises at the first difference.  Each port ``grid_pallas``
+    session's spills are read before every step (before the rollout
+    under ``run()``).  Returns {"steps", "err": {backend: max
+    abs err}, "share": {backend: largest share of the allowance},
+    "max_occ" (the port's fast sessions' largest tile or cell occupancy),
+    "max_spills", "truncated"}."""
+    rng = copy.deepcopy(case.rng)
+    port = {b: s for b, s in sims.items()
+            if b != "brute" and isinstance(s, Simulation)}
+    out = dict(steps=0, err={b: 0.0 for b in case.fast},
+               share={b: 0.0 for b in case.fast}, max_occ=0, max_spills=0,
+               truncated=0)
+
+    def spills():
+        for s in port.values():
+            if s.config.neighbor_backend == "grid_pallas":
+                out["max_spills"] = max(out["max_spills"], fuzz_spills(s))
+
+    if case.mode == "run":
+        spills()
+        counters = {b: s.run(case.n_steps, case.dt) for b, s in sims.items()}
+        for b in case.fast:
+            for field in FUZZ_RUN_COUNTERS:
+                np.testing.assert_array_equal(
+                    _fetch(getattr(counters[b], field)),
+                    _fetch(getattr(counters["brute"], field)),
+                    err_msg=f"{case.name}: {b} rollout counter {field}")
+        for b in port:
+            c = counters[b]
+            out["max_occ"] = max(out["max_occ"],
+                                 int(_fetch(c.max_cell_occupancy).max()))
+            out["truncated"] += int(_fetch(c.neighbor_truncated).sum())
+        _match(case, {b: _by_uid(s) for b, s in sims.items()},
+               f"after run({case.n_steps})", out)
+        out["steps"] = case.n_steps
+        return out
+    for step in range(case.n_steps):
+        spills()
+        for s in sims.values():
+            s.step(case.dt)
+        for b, s in port.items():
+            ev = s.last_events
+            out["max_occ"] = max(out["max_occ"],
+                                 int(ev.max_cell_occupancy))
+            out["truncated"] += int(ev.neighbor_truncated)
+        snaps = {b: _by_uid(s) for b, s in sims.items()}
+        _match(case, snaps, f"step {step}", out)
+        out["steps"] += 1
+        if case.churn and step % 3 == 2:
+            common = sorted(set.intersection(
+                *(set(uids) for uids, _ in snaps.values())))
+            if common:
+                victim = common[int(rng.integers(0, len(common)))]
+                for s in sims.values():
+                    s.remove_agents(victim)
+    return out
+
+
+def run_fuzz_case(case: FuzzCase, device="cuda") -> dict:
+    """``case`` through the port's sessions on ``device`` (the card unless
+    the caller names another device): ``brute`` and each fast backend,
+    held against each other by :func:`drive_fuzz`, whose result it
+    returns."""
+    sims = {b: build_fuzz_session(case, b, device)
+            for b in ("brute",) + tuple(case.fast)}
+    return drive_fuzz(case, sims)
+
+
+def wide_cases() -> list:
+    """The 16 wide cases of ``chip_smoke.py`` phase 10b: on
+    ``grid_pallas`` the first four seeds that draw ``fused_spills`` and
+    the first four that draw the spill patch, in seed order; on
+    ``grid_dense`` seeds 0-7."""
+    half = 4
+    pallas = {True: [], False: []}
+    seed = 0
+    while min(len(v) for v in pallas.values()) < half:
+        case = fuzz_case(seed, "grid_pallas", wide=True)
+        picked = pallas[case.config["fused_spills"]]
+        if len(picked) < half:
+            picked.append(case)
+        seed += 1
+    return (pallas[True] + pallas[False]
+            + [fuzz_case(s, "grid_dense", wide=True) for s in range(8)])
