@@ -64,6 +64,7 @@ from ..models.source_sink import (
     stack_source_params,
 )
 from ..ops.compact import compact_indices
+from ..utils.profiling import span
 from ..utils.registry import Registry
 from .config import SimConfig
 from .state import SimState, make_state
@@ -450,22 +451,23 @@ class Simulation:
                  (events.waypoint_reached, self.state.uid,
                   events.waypoint_position),
                  (events.destroyed, events.destroyed_uid, None))
-        while True:
-            k = self._event_k
-            parts = [diag]
-            if listeners:
-                comps = [compact_indices(mask, k) for mask, _, _ in kinds]
-                parts.append(torch.stack([c.count for c in comps]))
-                for c, (mask, uid, pos) in zip(comps, kinds):
-                    safe = torch.clamp(c.idx, 0, mask.shape[0] - 1).long()
-                    parts.append(uid[safe])
-                    if pos is not None:
-                        parts.append(pos[safe])
-            host = fetch(*parts)
-            if not listeners or int(host[1].max()) <= k:
-                break
-            # More events than records: grow the buffer, fetch again.
-            self._event_k = 1 << (int(host[1].max()) - 1).bit_length()
+        with span("crowdsim.session.read"):
+            while True:
+                k = self._event_k
+                parts = [diag]
+                if listeners:
+                    comps = [compact_indices(mask, k) for mask, _, _ in kinds]
+                    parts.append(torch.stack([c.count for c in comps]))
+                    for c, (mask, uid, pos) in zip(comps, kinds):
+                        safe = torch.clamp(c.idx, 0, mask.shape[0] - 1).long()
+                        parts.append(uid[safe])
+                        if pos is not None:
+                            parts.append(pos[safe])
+                host = fetch(*parts)
+                if not listeners or int(host[1].max()) <= k:
+                    break
+                # More events than records: grow the buffer, fetch again.
+                self._event_k = 1 << (int(host[1].max()) - 1).bit_length()
         truncated, max_occ, n_oob = (int(v) for v in host[0])
         if listeners:
             n_s, n_r, n_d = (int(v) for v in host[1])

@@ -12,7 +12,9 @@ code.  The step reads the device once: the skin decision (``need``, which
 includes whether anything spawned), as one ``.item()``.  Everything else
 — the spawn gate and slot allocation, the spill repair, the truncation
 audit, the counters and event records — stays on the device without a
-host read.
+host read.  The step's phases are ``crowdsim.step.*`` spans and its
+re-sorts the ``crowdsim.resorts`` counter (``utils/profiling.py``),
+recorded only while a ``torch.profiler`` session is active.
 
 With ``world_mesh`` (a ``parallel.comm.Mesh``) the step runs with its
 force pass domain-decomposed over the mesh's shards (``parallel/domain.py``);
@@ -30,6 +32,7 @@ from ..models.source_sink import GEN_CUSTOM, GEN_POISSON, SourceParams
 from ..ops import grid as grid_ops
 from ..ops import neighbors as nbr_ops
 from ..ops.compact import compact_indices
+from ..utils.profiling import count, span
 from .config import (
     BACKEND_BRUTE,
     BACKEND_CUSTOM,
@@ -106,8 +109,9 @@ def _spawn_phase(config: SimConfig, sp: SourceParams, state: SimState,
     s = sp.source.shape[0]
 
     n_req = spawn_requests(sp, dt, state.generator)
-    blocked = spawn_blocked(state.position, state.alive, sp.source,
-                            config.spawn_clearance)
+    with span("crowdsim.step.spawn_gate", device=True):
+        blocked = spawn_blocked(state.position, state.alive, sp.source,
+                                config.spawn_clearance)
     want = (n_req > 0) & ~blocked
     free = compact_indices(~state.alive, s)
     rank = torch.cumsum(want.to(i32), 0, dtype=i32) - 1
@@ -383,16 +387,70 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             state, tile_key(sort_cfg, state.position, state.alive),
             spawned)
 
+    def _force_pass(params: SimParams, state: SimState, vel, self_pref,
+                    binning, dense_key):
+        """The local planners: (vel, max_occ, truncated)."""
+        dev = state.device
+        max_occ = torch.zeros((), dtype=torch.int32, device=dev)
+        truncated = torch.zeros((), dtype=torch.int32, device=dev)
+        if not lp_planners:
+            return vel, max_occ, truncated
+        use_fused = bucket_cfg is not None
+        use_dense = dense_cfg is not None
+        need_nbr = any(
+            getattr(p, "needs_neighbors", True)
+            and not ((use_fused and hasattr(p, "plan_fused"))
+                     or (use_dense and hasattr(p, "plan_fused_dense")))
+            for p in lp_planners
+        )
+        nbr = None
+        if need_nbr:
+            nbr = neighbor_table(state)
+            max_occ = nbr.max_cell_occupancy
+            truncated = truncated + nbr.truncated
+        for i, planner in enumerate(lp_planners):
+            if use_dense and hasattr(planner, "plan_fused_dense"):
+                v, occ, dropped = planner.plan_fused_dense(
+                    params.lp[i], dense_cfg, state, vel, self_pref,
+                    dense_key, int_prio=config.integer_priorities,
+                )
+                max_occ = torch.maximum(max_occ, occ)
+                truncated = truncated + dropped
+            elif use_fused and hasattr(planner, "plan_fused"):
+                v, occ, dropped = planner.plan_fused(
+                    params.lp[i], bucket_cfg, state, vel, self_pref,
+                    use_pack_kernel=config.use_pack_kernel,
+                    spill_capacity=config.spill_capacity,
+                    presorted=presort,
+                    int_prio=config.integer_priorities,
+                    dual_row=config.dual_row,
+                    binning=binning,
+                    fused_spills=config.fused_spills,
+                    world_mesh=world_mesh,
+                )
+                max_occ = torch.maximum(max_occ, occ)
+                truncated = truncated + dropped
+            else:
+                v = planner.plan(params.lp[i], state, nbr, vel, self_pref)
+            sel = (state.lp_idx == i) & state.alive
+            vel = torch.where(sel[:, None], v, vel)
+        return vel, max_occ, truncated
+
     def step(params: SimParams, state: SimState, dt: float, skin=None):
+        with span("crowdsim.step", new_step=True):
+            return _step(params, state, float(dt), skin)
+
+    def _step(params: SimParams, state: SimState, dt: float, skin):
         n = config.capacity
         dev = state.device
-        dt = float(dt)
-        if params.sources is not None:
-            state, spawned, spawn_dropped = _spawn_phase(
-                config, params.sources, state, dt)
-        else:
-            spawned = torch.zeros((n,), dtype=torch.bool, device=dev)
-            spawn_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        with span("crowdsim.step.spawn"):
+            if params.sources is not None:
+                state, spawned, spawn_dropped = _spawn_phase(
+                    config, params.sources, state, dt)
+            else:
+                spawned = torch.zeros((n,), dtype=torch.bool, device=dev)
+                spawn_dropped = torch.zeros((), dtype=torch.int32,
+                                            device=dev)
 
         binning = None
         dense_key = None
@@ -407,79 +465,51 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                     | (disp > skin_margin))
             # The step's one host read: which branch to run.  Spawns break
             # the sort; despawns do not (see the end of the step).
-            resort = bool(need.item())
-            if resort:
-                state, spawned, key = _presort_state(state, spawned)
-                if dense_cfg is not None:
-                    # The dense pass derives its tables from the sorted
-                    # key each step; only the key is carried.
-                    bpos = torch.zeros((n,), dtype=torch.int32, device=dev)
-                    occ = torch.zeros((), dtype=torch.int32, device=dev)
-                    nover = torch.zeros((), dtype=torch.int32, device=dev)
+            with span("crowdsim.step.read"):
+                resort = bool(need.item())
+            count("crowdsim.resorts", resort)
+            with span("crowdsim.step.sort"):
+                if resort:
+                    state, spawned, key = _presort_state(state, spawned)
+                    if dense_cfg is not None:
+                        # The dense pass derives its tables from the
+                        # sorted key each step; only the key is carried.
+                        bpos = torch.zeros((n,), dtype=torch.int32,
+                                           device=dev)
+                        occ = torch.zeros((), dtype=torch.int32, device=dev)
+                        nover = torch.zeros((), dtype=torch.int32,
+                                            device=dev)
+                    else:
+                        bpos, occ, nover = rank_from_sorted_key(bucket_cfg,
+                                                                key)
+                    ref = state.position
                 else:
-                    bpos, occ, nover = rank_from_sorted_key(bucket_cfg, key)
-                ref = state.position
-            else:
-                key, bpos, occ, nover, ref = (
-                    skin["key"], skin["bpos"], skin["max_occ"],
-                    skin["n_over"], skin["ref"])
+                    key, bpos, occ, nover, ref = (
+                        skin["key"], skin["bpos"], skin["max_occ"],
+                        skin["n_over"], skin["ref"])
             binning = (key, bpos, occ, nover)
             dense_key = key
             skin_out = dict(key=key, bpos=bpos, max_occ=occ, n_over=nover,
                             ref=ref, resorted=resort)
         elif presort:
-            state, spawned, dense_key = _presort_state(state, spawned)
+            with span("crowdsim.step.sort"):
+                state, spawned, dense_key = _presort_state(state, spawned)
+            count("crowdsim.resorts")
 
-        vel, self_pref, state = _hl_phase(config, hl_planners, params, state)
+        with span("crowdsim.step.high_level"):
+            vel, self_pref, state = _hl_phase(config, hl_planners, params,
+                                              state)
 
-        max_occ = torch.zeros((), dtype=torch.int32, device=dev)
-        truncated = torch.zeros((), dtype=torch.int32, device=dev)
-        if lp_planners:
-            use_fused = bucket_cfg is not None
-            use_dense = dense_cfg is not None
-            need_nbr = any(
-                getattr(p, "needs_neighbors", True)
-                and not ((use_fused and hasattr(p, "plan_fused"))
-                         or (use_dense and hasattr(p, "plan_fused_dense")))
-                for p in lp_planners
+        with span("crowdsim.step.force_pass"):
+            vel, max_occ, truncated = _force_pass(params, state, vel,
+                                                  self_pref, binning,
+                                                  dense_key)
+
+        with span("crowdsim.step.finish"):
+            state, events, _ = _finish_phase(
+                config, hl_planners, params, state, vel, self_pref, spawned,
+                spawn_dropped, max_occ, truncated, dt,
             )
-            nbr = None
-            if need_nbr:
-                nbr = neighbor_table(state)
-                max_occ = nbr.max_cell_occupancy
-                truncated = truncated + nbr.truncated
-            for i, planner in enumerate(lp_planners):
-                if use_dense and hasattr(planner, "plan_fused_dense"):
-                    v, occ, dropped = planner.plan_fused_dense(
-                        params.lp[i], dense_cfg, state, vel, self_pref,
-                        dense_key, int_prio=config.integer_priorities,
-                    )
-                    max_occ = torch.maximum(max_occ, occ)
-                    truncated = truncated + dropped
-                elif use_fused and hasattr(planner, "plan_fused"):
-                    v, occ, dropped = planner.plan_fused(
-                        params.lp[i], bucket_cfg, state, vel, self_pref,
-                        use_pack_kernel=config.use_pack_kernel,
-                        spill_capacity=config.spill_capacity,
-                        presorted=presort,
-                        int_prio=config.integer_priorities,
-                        dual_row=config.dual_row,
-                        binning=binning,
-                        fused_spills=config.fused_spills,
-                        world_mesh=world_mesh,
-                    )
-                    max_occ = torch.maximum(max_occ, occ)
-                    truncated = truncated + dropped
-                else:
-                    v = planner.plan(params.lp[i], state, nbr, vel,
-                                     self_pref)
-                sel = (state.lp_idx == i) & state.alive
-                vel = torch.where(sel[:, None], v, vel)
-
-        state, events, _ = _finish_phase(
-            config, hl_planners, params, state, vel, self_pref, spawned,
-            spawn_dropped, max_occ, truncated, dt,
-        )
         if skin_mode:
             # Despawns keep the carried binning valid: bucketize and
             # dense_prep pack fresh-dead rows inert (position sentinel, id
@@ -635,7 +665,8 @@ def build_rollout(config: SimConfig, hl_planners: Sequence[Any],
                 state, ev, skin = step(params, state, dt, skin)
             else:
                 state, ev = step(params, state, dt)
-            rows.append(emit_rollout_record(ev, state, k))
+            with span("crowdsim.rollout.record"):
+                rows.append(emit_rollout_record(ev, state, k))
         if not rows:
             return state, _empty_records(k, config.tdtype, dev)
         return state, _stack(rows)

@@ -128,8 +128,16 @@ def device_kernels(run, steps: int, top: int = 15) -> dict:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         run()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernel_stats(prof.events(), steps, top)
+
+
+def kernel_stats(events, steps: int, top: int = 15) -> dict:
+    """:func:`device_kernels`'s figures from the profiler's events: those
+    on the device, less the mirrors of host annotations (the program's
+    ``record_function`` spans), which are no device work."""
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in kernels:
         by_name[e.name][0] += 1

@@ -3,7 +3,7 @@
 ``utils/validate.py`` against the JAX ``validate_state`` on clean and
 violated states; ``utils/profiling.py`` (``StepTimer.summary`` against the
 JAX timer's on the same times, ``trace`` writing a Chrome trace on the
-CPU, ``annotate`` inside it); ``utils/registry.py`` against the JAX
+CPU, the program's spans inside it); ``utils/registry.py`` against the JAX
 ``Registry``; and each example of ``rmf_crowdsim_tpu_torch/examples`` —
 its ``build()`` stepped against the JAX example of ``examples/`` (loaded
 with ``importlib``) to rtol = atol = 2e-4 by uid, and its ``main`` run
@@ -118,18 +118,19 @@ def test_step_timer_summary_matches_jax():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     """``trace`` writes ``trace.json`` under ``log_dir`` on the CPU, with
-    the regions that ``annotate`` named inside it."""
+    the spans that ``span`` and the session's step named inside it."""
     sim = T.Simulation(T.SimConfig(capacity=8), device="cpu")
     sim.add_agents([(0.0, 0.0)], T.ConstantVelocity((1.0, 0.0)),
                    T.NoLocalPlan(), 1.0)
     log_dir = str(tmp_path / "trace")
     with tprofiling.trace(log_dir):
-        with tprofiling.annotate("crowd_step"):
+        with tprofiling.span("crowd_step"):
             sim.step(0.1)
     path = os.path.join(log_dir, tprofiling.TRACE_FILE)
     with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "crowd_step" for e in events)
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"crowd_step", "crowdsim.step", "crowdsim.step.finish"} <= names
+    tprofiling.reset()
 
 
 def test_registry_matches_jax():

@@ -14,12 +14,15 @@ dense rollouts and every probe run with both replaced by functions that
 fail, and each wrapper's plain version runs instead.
 ``profile_step.kernel_device_ms``, with its profiler sessions replaced:
 a mean over the launches recorded, short sessions retaken, and a refusal
-where the calls launch more than one kernel.  One test needs the card
+where the calls launch more than one kernel; ``profile_step.kernel_stats``
+on a made-up event list, the device mirrors of host annotations left out.
+One test needs the card
 and skips without one.
 """
 
 import contextlib
 import ctypes
+import types
 
 import pytest
 import torch
@@ -317,6 +320,30 @@ def test_kernel_device_ms_refuses_several_launches_a_call(monkeypatch,
     _fake_profiles(monkeypatch, [top])
     with pytest.raises(AssertionError, match="more than one kernel"):
         profile_step.kernel_device_ms(lambda: None, 4, "")
+
+
+def test_kernel_stats_leave_out_annotation_mirrors():
+    """The profiler mirrors each ``record_function`` span onto the
+    device's timeline as an event on CUDA; it is no kernel and no busy
+    time.  Two steps: two launches of ``k1`` and one of ``k3``, under a
+    ``crowdsim.step`` span and its phase."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    def ev(name, us, device=cuda, annotation=False):
+        return types.SimpleNamespace(
+            name=name, device_type=device, is_user_annotation=annotation,
+            time_range=types.SimpleNamespace(elapsed_us=lambda: us))
+
+    events = [ev("crowdsim.step", 900.0, cpu, True),
+              ev("crowdsim.step", 800.0, annotation=True),
+              ev("crowdsim.step.force_pass", 500.0, annotation=True),
+              ev("cudaLaunchKernel", 5.0, cpu),
+              ev("k1", 400.0), ev("k1", 200.0), ev("k3", 100.0)]
+    got = profile_step.kernel_stats(events, steps=2)
+    assert got["launches_per_step"] == 1.5
+    assert got["device_busy_ms"] == pytest.approx(0.35)
+    assert [(n, k) for _, n, k in got["top"]] == [(1.0, "k1"), (0.5, "k3")]
+    assert [ms for ms, _, _ in got["top"]] == pytest.approx([0.3, 0.05])
 
 
 @pytest.mark.card
