@@ -52,10 +52,14 @@ repository beside it).  Phases, each printing its own line:
    reached and dropped spawns all > 0, and the population conserved step
    by step); then its host syncs per step, counted, and its kernel
    launches and device time per step (``torch.profiler`` over 3 steps);
-   path C also times its clearance gate (CUDA events) and runs 5 steps
-   with per-uid event records (2,048 a kind), whose valid uids match the
-   counters, with no overflow and every spawned uid new.  Last, the
-   ``grid`` backend on the 1M bench scene, 3 timed steps;
+   the clearance gate kernel (G1) launches once a timed step on path C
+   and never on the others, which have no sources; path C also checks
+   it bitwise against ``spawn_blocked_plain`` on its last state, times
+   both in turns (CUDA events) and the kernel alone on the device beside
+   its bound, and runs 5 steps with per-uid event records (2,048 a
+   kind), whose valid uids match the counters, with no overflow and
+   every spawned uid new.  Last, the ``grid`` backend on the 1M bench
+   scene, 3 timed steps;
 6. the measurement probes (``rmf_crowdsim_tpu_torch/probes``), which no
    path of the simulator runs: each probe kernel against its plain
    version on the card (K1's stage cuts bitwise on the 1M plane, ``full``
@@ -152,11 +156,12 @@ repository beside it).  Phases, each printing its own line:
    against its tolerance, largest tile occupancy and spills, seconds).
 
 Then one JSON line of per-kernel results (``library_ms`` is null for the
-five simulator kernels, as no single PyTorch call computes any of them,
-and for the probe kernels without one; the five simulator kernels
-carry their launches in phase 10 as ``launches_fuzz``, and K1, K2 and
-K3 their launches on path C, path D, the bitwise 1M world of 8c and the
-bench of 9a; each probe row also has its ``share`` of its bound, the P3 rows
+six simulator kernels, as no single PyTorch call computes any of them,
+and for the probe kernels without one; the six simulator kernels
+carry their launches in phase 10 as ``launches_fuzz``, and K1, K2, K3
+and G1 their launches on path C, path D, the bitwise 1M world of 8c and
+the bench of 9a, G1 also on each path of phase 5 as ``launches_phase5``;
+each probe row also has its ``share`` of its bound, the P3 rows
 their ``form`` (``mma`` or ``ffma``), ``link_ns``, ``latency_bound_ms``, ``rate_bound_ms`` and
 ``ptxas`` line (``bound_by`` ``latency`` where it binds), the
 ``mma_link`` rows their ``link_ns``, the P4 rows
@@ -866,7 +871,9 @@ def _path_d(torch, dev, card, kernels) -> dict:
         sim.step(DT)
     torch.cuda.synchronize()
 
-    required = ("pack_rows", "zanlungo_bucketed", "spill_window")
+    # The 1,024 sources run the gate (G1) at every step.
+    required = ("pack_rows", "zanlungo_bucketed", "spill_window",
+                "spawn_blocked")
     n_steps = 20
 
     def window(run):
@@ -1537,13 +1544,14 @@ def main() -> int:
 
     from rmf_crowdsim_tpu_torch import scenes
     from rmf_crowdsim_tpu_torch.core.step import build_rollout, spawn_blocked
+    from rmf_crowdsim_tpu_torch.ops.spawn_gate import spawn_blocked_plain
     from rmf_crowdsim_tpu_torch.ops import pack, spill
     from rmf_crowdsim_tpu_torch.ops import zanlungo_bucketed as zb
     from rmf_crowdsim_tpu_torch.ops import zanlungo_dense as zd
     from rmf_crowdsim_tpu_torch.utils import cuda_build
     from rmf_crowdsim_tpu_torch.utils import roofline as rl
     from rmf_crowdsim_tpu_torch.utils.profile_step import (
-        card_line, cuda_ms, cuda_ms_in_turns, kernel_device_ms)
+        card_line, cuda_ms_in_turns, kernel_device_ms)
 
     def bound_text(b, ms):
         return (f"bound {b.ms:.4f} ms ({b.bound_by}: {b.bytes} B, {b.ops} "
@@ -1935,28 +1943,31 @@ def main() -> int:
         "spill_window": spill.spill_window,
         "zanlungo_bucketed_spill": zb.zanlungo_forces_bucketed_spill,
         "zanlungo_dense": zd.zanlungo_forces_dense,
+        "spawn_blocked": spawn_blocked,
     }
-    # (scene options, kernels that must launch, kernels that must not)
+    # (scene options, kernels that must launch, kernels that must not);
+    # the bench scene has no sources, so no path of it runs the gate.
     paths = {
         "main grid_pallas": (
             dict(backend="grid_pallas"), MAIN_KERNELS,
-            ("zanlungo_bucketed_spill", "zanlungo_dense")),
+            ("zanlungo_bucketed_spill", "zanlungo_dense", "spawn_blocked")),
         "path A grid_dense": (
             dict(backend="grid_dense"), ("zanlungo_dense",),
             ("pack_rows", "zanlungo_bucketed", "spill_window",
-             "zanlungo_bucketed_spill")),
+             "zanlungo_bucketed_spill", "spawn_blocked")),
         "path B grid_pallas fused_spills": (
             dict(backend="grid_pallas", fused_spills=True),
             ("pack_rows", "zanlungo_bucketed_spill", "spill_window"),
-            ("zanlungo_bucketed", "zanlungo_dense")),
+            ("zanlungo_bucketed", "zanlungo_dense", "spawn_blocked")),
     }
-    launches, walls, profs = {}, {}, {}
+    launches, walls, profs, gate_paths = {}, {}, {}, {}
     for name, (kw, required, absent) in paths.items():
         rollout, params, st = scenes.build_bench(N_MAIN, device=dev, **kw)
         counts, walls[name], profs[name], _ = _drive(
             torch, name, rollout, params, st, kernels, required, absent, card)
         for k in required:
             launches.setdefault(k, counts[k])
+        gate_paths[name] = counts["spawn_blocked"]
         del rollout, params, st
         torch.cuda.empty_cache()
 
@@ -1965,16 +1976,43 @@ def main() -> int:
     rollout, params, st = scenes.build_streams(N_MAIN, CAP_MAIN, N_SOURCES,
                                                device=dev)
     launches_c, wall_c, prof_c, st = _drive(
-        torch, name, rollout, params, st, kernels, paths["main grid_pallas"][1],
-        paths["main grid_pallas"][2], card, warm=STREAM_WARM,
+        torch, name, rollout, params, st, kernels,
+        MAIN_KERNELS + ("spawn_blocked",),
+        ("zanlungo_bucketed_spill", "zanlungo_dense"), card, warm=STREAM_WARM,
         check=_stream_check(torch, name))
+    gates = launches_c["spawn_blocked"]
+    if gates != 20:
+        raise AssertionError(f"{name}: the gate kernel launched {gates} "
+                             f"times in 20 timed steps")
+    gate_paths[name] = gates
+    launches["spawn_blocked"] = gates
     sp = params.sources
     clear = scenes.stream_config(N_MAIN, CAP_MAIN).spawn_clearance
-    gate_ms = cuda_ms(lambda: spawn_blocked(st.position, st.alive, sp.source,
-                                            clear), 10)
+    gate_args = (st.position, st.alive, sp.source, clear)
+    blocked = spawn_blocked(*gate_args)
+    gate_err = float((blocked.to(torch.int8)
+                      - spawn_blocked_plain(*gate_args).to(torch.int8))
+                     .abs().max())
+    if gate_err:
+        raise AssertionError(f"{name}: the gate kernel differs from "
+                             f"spawn_blocked_plain")
+    gate_ms, plain_ms = cuda_ms_in_turns(
+        lambda: spawn_blocked(*gate_args),
+        lambda: spawn_blocked_plain(*gate_args), 10)
+    gate_dev = kernel_device_ms(lambda: spawn_blocked(*gate_args), 10,
+                                "spawn_gate_kernel")
+    gate_b = rl.gate_bound(CAP_MAIN, int(st.num_alive), N_SOURCES)
+    results["spawn_blocked"] = dict(err=gate_err, ms=gate_ms,
+                                    plain_ms=plain_ms, bound=gate_b,
+                                    device_ms=gate_dev)
     main = "main grid_pallas"
-    print(f"phase 5 {name} clearance gate ({N_SOURCES} sources x {CAP_MAIN} "
-          f"slots, CUDA events over 10 calls): {gate_ms:.3f} ms/step, "
+    print(f"phase 5 {name} clearance gate G1 ({N_SOURCES} sources x "
+          f"{CAP_MAIN} slots, {int(blocked.sum())} blocked, bitwise "
+          f"spawn_blocked_plain; {gates} launches in the 20 timed steps): "
+          f"{gate_ms:.4f} ms a call (zero fill + kernel, CUDA events over "
+          f"10 calls, in turns with the plain version's {plain_ms:.3f}), "
+          f"the kernel {gate_dev:.4f} ms on the device, "
+          f"{bound_text(gate_b, gate_dev)}; "
           f"{100 * gate_ms / prof_c['device_busy_ms']:.1f}% of the path's "
           f"device busy time; path C vs the main path in this call: "
           f"{wall_c:.3f} vs {walls[main]:.3f} ms/step, device busy "
@@ -2073,7 +2111,9 @@ def main() -> int:
             "rmf_crowdsim_tpu/ops/zanlungo_pallas.py:1403"),
         "zanlungo_dense": ("rmf_crowdsim_tpu_torch/csrc/zanlungo_dense.cu",
                            "rmf_crowdsim_tpu/ops/zanlungo_dense.py:878"),
+        "spawn_blocked": ("rmf_crowdsim_tpu_torch/csrc/spawn_gate.cu", None),
     }
+    counted = MAIN_KERNELS + ("spawn_blocked",)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source[name][0],
          "replaces": source[name][1], "launches": launches[name],
@@ -2089,7 +2129,9 @@ def main() -> int:
              "launches_path_d": launches_d[name],
              "launches_world": launches_w[name],
              "launches_bench": launches_b[name]}
-            if name in MAIN_KERNELS else {})}
+            if name in counted else {}),
+         **({"launches_phase5": gate_paths}
+            if name == "spawn_blocked" else {})}
         for name in source
     ] + probe_rows}))
     print(f"card: {card}")

@@ -32,6 +32,7 @@ from ..models.source_sink import GEN_CUSTOM, GEN_POISSON, SourceParams
 from ..ops import grid as grid_ops
 from ..ops import neighbors as nbr_ops
 from ..ops.compact import compact_indices
+from ..ops.spawn_gate import spawn_blocked
 from ..utils.profiling import count, span
 from .config import (
     BACKEND_BRUTE,
@@ -43,10 +44,6 @@ from .config import (
 )
 from .state import SimState, StepEvents, TensorDataclass
 
-# Sources per pass of the clearance gate, as the JAX package chunks it
-# (core/step.py:119): its temporaries stay [64, N].
-SPAWN_CHUNK = 64
-
 
 @dataclasses.dataclass(frozen=True)
 class SimParams(TensorDataclass):
@@ -55,26 +52,6 @@ class SimParams(TensorDataclass):
     hl: Tuple[Any, ...]
     lp: Tuple[Any, ...]
     sources: Optional[SourceParams] = None
-
-
-def spawn_blocked(position: torch.Tensor, alive: torch.Tensor,
-                  sources: torch.Tensor, clearance: float) -> torch.Tensor:
-    """[S] bool: an alive agent lies strictly within ``clearance`` of the
-    source (lib.rs:212-214), ``sqrt(dx*dx + dy*dy) < clearance`` in the
-    position dtype.  Dense over [64, N] planes per pass of 64 sources;
-    dead agents are moved to infinity, where no distance passes."""
-    inf = torch.full((), float("inf"), dtype=position.dtype,
-                     device=position.device)
-    far = torch.where(alive[:, None], position, inf)
-    px, py = far[:, 0], far[:, 1]
-    out = []
-    for lo in range(0, sources.shape[0], SPAWN_CHUNK):
-        src = sources[lo:lo + SPAWN_CHUNK]
-        dx = px[None, :] - src[:, 0:1]
-        dy = py[None, :] - src[:, 1:2]
-        d2 = dx.mul_(dx).add_(dy.mul_(dy))
-        out.append((d2.sqrt_() < clearance).any(1))
-    return torch.cat(out)
 
 
 def spawn_requests(sp: SourceParams, dt: float,

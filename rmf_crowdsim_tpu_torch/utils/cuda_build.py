@@ -44,13 +44,14 @@ NVCC_FLAGS = (
 )
 
 # C entry points: one code per argument before the trailing stream
-# ("p" = device pointer, None for NULL; "i" = int).
+# ("p" = device pointer, None for NULL; "i" = int; "d" = double).
 SIGNATURES = {
     "crowdsim_pack_rows": "pppiipp",
     "crowdsim_zanlungo_bucketed": "pppppiiiiii",
     "crowdsim_zanlungo_bucketed_spill": "pppppppiiiiiiii",
     "crowdsim_spill_window": "ppppppppppiiiiii",
     "crowdsim_zanlungo_dense": "pppppiiiiiii",
+    "crowdsim_spawn_gate": "ppppiiid",
     # The measurement probes (probes/).
     "crowdsim_k1_stage": "pppppiiiiiii",
     "crowdsim_mma_chain": "ppppiiiii",
@@ -60,7 +61,7 @@ SIGNATURES = {
     # An empty <<<1, 32>>> kernel: the launch floor (probes/launch.py).
     "crowdsim_noop": "",
 }
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "d": ctypes.c_double}
 
 # name -> the bound ctypes function; filled when the library is loaded.
 _LAUNCHERS: dict = {}
@@ -68,7 +69,8 @@ _LAUNCHERS: dict = {}
 
 def argtypes(sig: str) -> list:
     """The ctypes argument types of a ``SIGNATURES`` code: ``c_void_p``
-    for each pointer and the trailing stream, ``c_int`` for each int."""
+    for each pointer and the trailing stream, ``c_int`` for each int,
+    ``c_double`` for each double."""
     return [_CTYPES[c] for c in sig] + [ctypes.c_void_p]
 
 
@@ -199,10 +201,10 @@ def _launcher(name: str):
 
 def launch(name: str, *args, device: int | None = None) -> None:
     """Call C entry point ``name`` with tensors passed as device pointers,
-    None as a null pointer and ints as ints, on the current stream of the
-    first argument's device (a tensor's; ``device``, a CUDA index, for an
-    entry point that takes no tensor).  The device guard is entered only
-    where that device is not the current one."""
+    None as a null pointer and ints and floats as they are, on the current
+    stream of the first argument's device (a tensor's; ``device``, a CUDA
+    index, for an entry point that takes no tensor).  The device guard is
+    entered only where that device is not the current one."""
     fn = _LAUNCHERS.get(name) or _launcher(name)
     if device is None:
         first = args[0] if args else None

@@ -324,6 +324,25 @@ def k4_work(cfg, zp5, feat, tile_start,
 
 
 # ---------------------------------------------------------------------------
+# G1: the spawn clearance gate
+# ---------------------------------------------------------------------------
+
+
+# The pair test of csrc/spawn_gate.cu: two subtractions, two products, a
+# sum and a compare.
+GATE_OPS = 6
+
+
+def gate_bound(n_slots: int, n_live: int, n_sources: int) -> Bound:
+    """G1, the spawn gate (``csrc/spawn_gate.cu``), in f32: every slot's
+    alive flag, each live agent's position and each source's position
+    read once, one byte out a source; one pair test of ``GATE_OPS``
+    operations for each live agent and source."""
+    return Bound(n_slots + 2 * _F32 * n_live + (2 * _F32 + 1) * n_sources,
+                 GATE_OPS * n_live * n_sources)
+
+
+# ---------------------------------------------------------------------------
 # The probes: K1's stage cuts (P1/P2), the 0/1 product chain (P3), the
 # transposes and feature-plane writers (P4)
 # ---------------------------------------------------------------------------

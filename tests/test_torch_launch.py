@@ -5,10 +5,11 @@ the CPU.
 (and, for the one-device check, stand-ins that report a CUDA device), in
 the order dtype, shape, contiguity, CUDA, one device.  Every entry point
 of ``SIGNATURES`` binds to ``c_void_p`` for each pointer and the trailing
-stream and ``c_int`` for each int.  ``launch`` itself, with the library
-and torch's CUDA calls replaced by recorders: the raw stream of the
-device, the device guard only off the current device, a non-zero CUDA
-error raised, an unknown entry point refused.  No kernel wrapper reaches
+stream, ``c_int`` for each int and ``c_double`` for each double.
+``launch`` itself, with the library and torch's CUDA calls replaced by
+recorders: the raw stream of the device, the device guard only off the
+current device, a non-zero CUDA error raised, an unknown entry point
+refused.  No kernel wrapper reaches
 ``check_tensors`` or ``launch`` on CPU tensors: the three bucketed and
 dense rollouts and every probe run with both replaced by functions that
 fail, and each wrapper's plain version runs instead.
@@ -110,7 +111,8 @@ def test_signature_argtypes(name):
     assert len(got) == len(sig) + 1
     assert got[-1] is ctypes.c_void_p
     for code, t in zip(sig, got):
-        assert t is {"p": ctypes.c_void_p, "i": ctypes.c_int}[code]
+        assert t is {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                     "d": ctypes.c_double}[code]
 
 
 def test_noop_binds_the_stream_alone():

@@ -345,10 +345,11 @@ def _c_entry_args(name):
 @pytest.mark.parametrize("name", sorted(cuda_build.SIGNATURES))
 def test_c_entry_matches_its_signature(name):
     """One code a parameter before the trailing stream: "p" a pointer,
-    "i" an int."""
+    "i" an int, "d" a double."""
     args = _c_entry_args(name)
     assert args[-1] == "void*"
-    codes = "".join("p" if t.endswith("*") else "i" if t == "int" else "?"
+    codes = "".join("p" if t.endswith("*") else
+                    {"int": "i", "double": "d"}.get(t, "?")
                     for t in args[:-1])
     assert codes == cuda_build.SIGNATURES[name]
 

@@ -47,6 +47,18 @@ def test_bytes_and_bound_at_the_1m_bench_config():
         239 * 120 + 8 * 62 + 66)
 
 
+def test_gate_bound_at_the_streams_shapes():
+    """G1 at the 1M streaming scene: 1,048,576 alive flags, 1,000,000
+    live positions, 1,024 sources in and their bytes out; 6 operations a
+    (live agent, source) pair bind it."""
+    b = rl.gate_bound(1_048_576, 1_000_000, 1024)
+    assert b.bytes == 1_048_576 + 8 * 1_000_000 + 9 * 1024 == 9_057_792
+    assert b.ops == 6 * 1_000_000 * 1024
+    assert b.bound_by == "operations"
+    assert b.ms == pytest.approx(0.0917015, rel=1e-5)
+    assert rl.gate_bound(4096, 0, 64).ops == 0
+
+
 def test_k1_bytes_between_no_slot_and_every_slot_live():
     cfg = scenes.bench_bucket_config(1_000_000)
     # Every slot live: the whole planes but the 5 features of each
