@@ -47,7 +47,10 @@ repository beside it).  Phases, each printing its own line:
    streaming scene (1,024 sources, capacity 1,048,576) on
    ``grid_pallas``.  Each: a warm-up (30 steps on path C), then 20 timed
    steps with the launch counts set to 0 just before and read just
-   after; zero truncation, finite state, every kernel of the path
+   after, replayed from the rollout's CUDA graphs (``core/graphs.py``),
+   then the same 20 steps issued eagerly (``rollout.eager``) from the
+   same state, timed beside them with the graphs captured, the launch
+   counts of both equal; zero truncation, finite state, every kernel of the path
    launched, and no agent lost (path C: spawns, despawns, waypoints
    reached and dropped spawns all > 0, and the population conserved step
    by step); then its host syncs per step, counted, and its kernel
@@ -99,7 +102,8 @@ repository beside it).  Phases, each printing its own line:
    sums, every spawned uid new, the population conserved), its host
    syncs per step (at most 1) and profile, a timed ``run(20)`` (the
    listener's totals equal to its counters; the replay's host time
-   apart), ``check_state``, the two spatial queries against brute at 4
+   apart), then its rollout alone from the session's state, replayed
+   from its graphs and eagerly, ms/step side by side, launches equal, ``check_state``, the two spatial queries against brute at 4
    points, and a checkpoint: saved, loaded into a fresh session, and 3
    more steps of both bitwise equal by uid;
 8. the multi-device engines (``rmf_crowdsim_tpu_torch/parallel``), D
@@ -323,14 +327,25 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
     n_before = int(st.num_alive)
     shape = tuple(st.position.shape)
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    st, c = rollout(params, st, DT, n_steps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in kernels.items()}
+    start = st
+
+    def window(run):
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out = run(params, start, DT, n_steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: fn.launches
+                                               for k, fn in kernels.items()}
+
+    (st, c), wall, launches = window(rollout)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The same steps issued eagerly from the same state: the launch counts
+    # of the graphs' replays must be the eager ones.
+    _, wall_eager, launches_eager = window(rollout.eager)
+    if launches_eager != launches:
+        raise AssertionError(f"{name}: launches {launches} replayed, "
+                             f"{launches_eager} eager")
     missing = [k for k in required if launches[k] == 0]
     if missing:
         raise AssertionError(f"{name} never launched {missing}")
@@ -350,8 +365,11 @@ def _drive(torch, name, rollout, params, st, kernels, required, absent,
         check(c, n_before)
     print(f"phase 5 {name}: {n_before} agents, {n_steps} steps in "
           f"{wall:.4f} s = {n_steps / wall:.2f} steps/s, "
-          f"{1e3 * wall / n_steps:.3f} ms/step on '{card}'; launches "
-          f"{launches}; max tile occupancy "
+          f"{1e3 * wall / n_steps:.3f} ms/step graphed vs "
+          f"{1e3 * wall_eager / n_steps:.3f} eager on '{card}' "
+          f"({rollout.graphs.captures} graphs captured, "
+          f"{rollout.graphs.graphed_steps} steps replayed); launches "
+          f"{launches}, the same eager; max tile occupancy "
           f"{int(c.max_cell_occupancy.max())}; truncated 0; peak "
           f"{peak_gb:.2f} GB", flush=True)
 
@@ -948,12 +966,28 @@ def _path_d(torch, dev, card, kernels) -> dict:
         torch, f"{name} run()", counter,
         torch.stack([c.n_spawned, c.n_destroyed, c.n_waypoint_reached], 1),
         c.n_alive, n_before, next_uid)
+    # run()'s rollout from the session's state, replayed and eager, apart
+    # from the listener: the same launches, ms/step side by side.
+    (rollout,) = sim._rollouts.values()
+    start = sim.state
+    rollout(sim._params, start, DT, n_steps)
+    ms_graphed, launches_graphed = window(
+        lambda: rollout(sim._params, start, DT, n_steps))
+    ms_eager, launches_eager = window(
+        lambda: rollout.eager(sim._params, start, DT, n_steps))
+    if launches_eager != launches_graphed:
+        raise AssertionError(f"{name}: run()'s rollout launches "
+                             f"{launches_graphed} replayed, "
+                             f"{launches_eager} eager")
     print(f"phase 7 {name} run({n_steps}): {ms_run:.3f} ms/step on "
           f"'{card}', of which the listener replay {1e3 * replay_s[0]:.3f} "
           f"ms on the host ({1e3 * replay_s[0] / n_steps:.3f} ms/step); "
           f"launches {launches_run}; listener spawned, despawned, reached "
           f"{got} = the RolloutCounters, every spawned uid new; conserved "
-          f"step by step", flush=True)
+          f"step by step; its rollout alone {ms_graphed:.3f} ms/step "
+          f"graphed vs {ms_eager:.3f} eager ({rollout.graphs.captures} "
+          f"graphs captured), launches the same; step() "
+          f"{ms_step:.3f}", flush=True)
 
     check_state(sim.state)
     st = sim.state

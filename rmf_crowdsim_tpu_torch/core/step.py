@@ -12,8 +12,11 @@ code.  The step reads the device once: the skin decision (``need``, which
 includes whether anything spawned), as one ``.item()``.  Everything else
 — the spawn gate and slot allocation, the spill repair, the truncation
 audit, the counters and event records — stays on the device without a
-host read.  The step's phases are ``crowdsim.step.*`` spans and its
-re-sorts the ``crowdsim.resorts`` counter (``utils/profiling.py``),
+host read.  So the step is ``pre`` (before the read), ``read`` and
+``post`` (one of two fixed sequences after it), and on CUDA
+``build_rollout`` replays each half as a captured CUDA graph
+(``core/graphs.py``).  The step's phases are ``crowdsim.step.*`` spans
+and its re-sorts the ``crowdsim.resorts`` counter (``utils/profiling.py``),
 recorded only while a ``torch.profiler`` session is active.
 
 With ``world_mesh`` (a ``parallel.comm.Mesh``) the step runs with its
@@ -42,6 +45,7 @@ from .config import (
     BACKEND_GRID_PALLAS,
     SimConfig,
 )
+from .graphs import StepGraphs
 from .state import SimState, StepEvents, TensorDataclass
 
 
@@ -413,11 +417,10 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             vel = torch.where(sel[:, None], v, vel)
         return vel, max_occ, truncated
 
-    def step(params: SimParams, state: SimState, dt: float, skin=None):
-        with span("crowdsim.step", new_step=True):
-            return _step(params, state, float(dt), skin)
-
-    def _step(params: SimParams, state: SimState, dt: float, skin):
+    def pre(params: SimParams, state: SimState, dt: float, skin=None):
+        """The step up to its read: the spawn phase and, in skin mode, the
+        skin decision ``need`` ([] bool on the device; None otherwise).
+        Returns (state, spawned, spawn_dropped, need)."""
         n = config.capacity
         dev = state.device
         with span("crowdsim.step.spawn"):
@@ -428,23 +431,41 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
                 spawned = torch.zeros((n,), dtype=torch.bool, device=dev)
                 spawn_dropped = torch.zeros((), dtype=torch.int32,
                                             device=dev)
+        need = None
+        if skin_mode:
+            d = torch.abs(state.position - skin["ref"])
+            disp = torch.where(state.alive[:, None], d,
+                               torch.zeros_like(d)).max()
+            # Spawns break the sort; despawns do not (see post's end).
+            need = ((~skin["valid"]) | spawned.any()
+                    | (disp > skin_margin))
+        return state, spawned, spawn_dropped, need
 
+    def read(need) -> bool:
+        """The step's one host read: whether to re-sort (the skin's
+        decision; the presort's every step without the skin)."""
+        resort = presort
+        if skin_mode:
+            with span("crowdsim.step.read"):
+                resort = bool(need.item())
+        if presort:
+            count("crowdsim.resorts", resort)
+        return resort
+
+    def post(params: SimParams, state: SimState, spawned, spawn_dropped,
+             dt: float, skin, resort: bool):
+        """The step after its read: the re-sort or the carried binning
+        (``resort``), the high-level planners, the force pass and the
+        finish.  Returns (state, events) or, in skin mode, (state,
+        events, skin)."""
+        n = config.capacity
+        dev = state.device
         binning = None
         dense_key = None
         skin_out = None
         if skin_mode:
             from ..ops.zanlungo_bucketed import rank_from_sorted_key
 
-            d = torch.abs(state.position - skin["ref"])
-            disp = torch.where(state.alive[:, None], d,
-                               torch.zeros_like(d)).max()
-            need = ((~skin["valid"]) | spawned.any()
-                    | (disp > skin_margin))
-            # The step's one host read: which branch to run.  Spawns break
-            # the sort; despawns do not (see the end of the step).
-            with span("crowdsim.step.read"):
-                resort = bool(need.item())
-            count("crowdsim.resorts", resort)
             with span("crowdsim.step.sort"):
                 if resort:
                     state, spawned, key = _presort_state(state, spawned)
@@ -471,7 +492,6 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
         elif presort:
             with span("crowdsim.step.sort"):
                 state, spawned, dense_key = _presort_state(state, spawned)
-            count("crowdsim.resorts")
 
         with span("crowdsim.step.high_level"):
             vel, self_pref, state = _hl_phase(config, hl_planners, params,
@@ -496,7 +516,16 @@ def build_step(config: SimConfig, hl_planners: Sequence[Any],
             return state, events, skin_out
         return state, events
 
+    def step(params: SimParams, state: SimState, dt: float, skin=None):
+        dt = float(dt)
+        with span("crowdsim.step", new_step=True):
+            state, spawned, spawn_dropped, need = pre(params, state, dt,
+                                                      skin)
+            return post(params, state, spawned, spawn_dropped, dt, skin,
+                        read(need))
+
     step.skin_mode = skin_mode
+    step.pre, step.read, step.post = pre, read, post
     return step
 
 
@@ -626,14 +655,18 @@ def build_rollout(config: SimConfig, hl_planners: Sequence[Any],
     (core/step.py:753).  ``records`` is :class:`RolloutCounters` ([T]
     each) when ``event_capacity`` is 0, else an :class:`EventStream` with
     ``[T, event_capacity]`` records per kind and the counters inside.
-    ``neighbor_fn``: see :func:`build_step`."""
+    ``neighbor_fn``: see :func:`build_step`.
+
+    On CUDA states the steps replay as captured CUDA graphs, bit for bit
+    the eager loop (``rollout.graphs``, a :class:`~.graphs.StepGraphs`;
+    None with the ``custom`` backend, whose ``neighbor_fn`` may read the
+    host); ``rollout.eager`` is the eager loop itself."""
     step = build_step(config, hl_planners, lp_planners,
                       neighbor_fn=neighbor_fn, skin_mode=True)
     uses_skin = bool(step.skin_mode)
     k = int(event_capacity)
 
-    def rollout(params: SimParams, state: SimState, dt: float,
-                n_steps: int):
+    def eager(params: SimParams, state: SimState, dt: float, n_steps: int):
         dev = state.device
         skin = empty_skin(config, dev) if uses_skin else None
         rows = []
@@ -648,5 +681,19 @@ def build_rollout(config: SimConfig, hl_planners: Sequence[Any],
             return state, _empty_records(k, config.tdtype, dev)
         return state, _stack(rows)
 
+    graphs = None
+    if config.neighbor_backend != BACKEND_CUSTOM:
+        graphs = StepGraphs(step, lambda dev: empty_skin(config, dev),
+                            lambda ev, st: emit_rollout_record(ev, st, k),
+                            eager)
+
+    def rollout(params: SimParams, state: SimState, dt: float,
+                n_steps: int):
+        if graphs is not None and graphs.engages(state):
+            return graphs.run(params, state, dt, n_steps)
+        return eager(params, state, dt, n_steps)
+
     rollout.engine = "standard"
+    rollout.eager = eager
+    rollout.graphs = graphs
     return rollout

@@ -22,6 +22,11 @@ Here:
   it belong to that step until the next one opens.
 - :func:`count`: a named counter, on under the same switch, in the same
   store.
+- :func:`capturing`: while a CUDA graph is captured (``core/graphs.py``)
+  spans and counters are off, since the captured ops run at each replay
+  and not now; a span opened with ``device=True`` then records external
+  timing events into the graph instead, and :func:`replayed_span` stores
+  their interval after each replay as that span (no host interval).
 - :func:`records`, :func:`counters`, :func:`reset`: read and clear the
   store.  The store fills while any profiler session runs and is
   cleared only by :func:`reset` and at the start of :func:`trace`: a
@@ -204,20 +209,76 @@ class _Span:
         return False
 
 
+class _CapturedSpan:
+    """A device span inside a CUDA graph capture: a pair of external
+    timing events, which the graph records at each replay."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, name: str):
+        self.events = (torch.cuda.Event(enable_timing=True, external=True),
+                       torch.cuda.Event(enable_timing=True, external=True))
+        _captured.append((name, self.events))
+
+    def __enter__(self):
+        self.events[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        self.events[1].record()
+        return False
+
+
+# The device spans of the capture in progress; None outside a capture.
+_captured: Optional[list] = None
+
+
+@contextlib.contextmanager
+def capturing():
+    """Spans and counters off for a CUDA graph capture; yields the list of
+    (name, (start, end) events) of the device spans the graph records."""
+    global _captured
+    outer, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = outer
+
+
 def span(name: str, new_step: bool = False, device: bool = False):
     """A named span of the program, recorded while a ``torch.profiler``
     session is active; otherwise a shared null context.  ``new_step``:
     the span opens the next step index; ``device``: it also records its
     interval on the device (CUDA events)."""
+    if _captured is not None:
+        return _CapturedSpan(name) if device else _NULL
     if not _profiling():
         return _NULL
     return _Span(name, new_step, device)
 
 
+def replayed_span(name: str, events: tuple) -> None:
+    """Store a device span of a replayed CUDA graph, while a
+    ``torch.profiler`` session is active: its device ms from the graph's
+    timing events (waiting for the end one), no host interval, in the
+    open span and step."""
+    if not _profiling():
+        return
+    st = _store
+    if len(st.records) >= MAX_RECORDS:
+        st.counters[DROPPED] = st.counters.get(DROPPED, 0) + 1
+        return
+    events[1].synchronize()
+    t = time.perf_counter_ns()
+    st.records.append(SpanRecord(name, st.open[-1] if st.open else -1,
+                                 st.step, t, t,
+                                 device_ms=events[0].elapsed_time(events[1])))
+
+
 def count(name: str, n=1) -> None:
     """Add ``n`` (a host number) to the counter ``name`` while a
-    ``torch.profiler`` session is active."""
-    if _profiling():
+    ``torch.profiler`` session is active (never inside a capture)."""
+    if _captured is None and _profiling():
         _store.counters[name] = _store.counters.get(name, 0) + int(n)
 
 
